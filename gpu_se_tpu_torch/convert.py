@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
+from gpu_se_tpu_torch.filters.particle import PFState
 from gpu_se_tpu_torch.filters.particle_tiled import (
     TiledPFState,
     untile_from_jax,
@@ -32,3 +33,14 @@ def tiled_state_from_numpy(tiled, nx: int,
     :class:`TiledPFState` on the generator's device."""
     x = untile_from_jax(np.asarray(tiled), nx).to(generator.device)
     return TiledPFState(x=x, generator=generator)
+
+
+def pf_state_from_numpy(particles, weights,
+                        generator: torch.Generator) -> PFState:
+    """The reference's flat ``PFState`` fields (``particles (n, nx)``,
+    ``weights (n,)``) as a :class:`PFState` on the generator's device,
+    drawing from ``generator``."""
+    def dev(a):
+        return torch.tensor(np.asarray(a), device=generator.device)
+
+    return PFState(dev(particles), dev(weights), generator)

@@ -22,6 +22,8 @@
 #include <climits>
 #include <cstddef>
 
+#include "lower_bound.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------
@@ -52,18 +54,7 @@ __global__ void search_gather_kernel(const int* __restrict__ keys, int L,
                                      int* __restrict__ anc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  int lo = 0;
-  int len = L;
-  while (len > 0) {
-    const int half = len >> 1;
-    const int mid = lo + half;
-    if (__ldg(keys + mid) < i) {
-      lo = mid + 1;
-      len -= half + 1;
-    } else {
-      len = half;
-    }
-  }
+  const int lo = gst::lower_bound(keys, L, i);
   // keys[L-1] >= n-1 on every path of the filter; the clamp keeps a
   // malformed input (NaN weights) in bounds, as the plain version does
   const int j = lo < L ? lo : L - 1;

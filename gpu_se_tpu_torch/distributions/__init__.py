@@ -1,4 +1,7 @@
 """Gaussian-mixture distributions on torch tensors."""
-from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
+from gpu_se_tpu_torch.distributions.gaussian_sum import (
+    GaussianSum,
+    MultivariateGaussianSum,
+)
 
-__all__ = ["GaussianSum"]
+__all__ = ["GaussianSum", "MultivariateGaussianSum"]

@@ -2,15 +2,16 @@
 
 Counterpart of ``gpu_se_tpu/distributions/gaussian_sum.py``: the same
 host float64 precompute of the Cholesky factors, inverse covariances
-and normalization constants, cast to float32 on the target device, and
-the same lanes-last ``pdf_t`` / ``draw_t`` used by the tiled particle
-filter.
+and normalization constants, cast to float32 on the target device; the
+row-major ``pdf`` / ``logpdf`` / ``draw`` of the flat particle filter and
+the lanes-last ``pdf_t`` / ``draw_t`` of the tiled one; and the stateful
+:class:`MultivariateGaussianSum` shell.
 
 Random numbers come from an explicit ``torch.Generator``: Philox on a
 CUDA generator, the Mersenne twister on a CPU one. Neither reproduces
 the reference's threefry stream, so element-level tests inject the
-reference's normals and uniforms through :meth:`GaussianSum.draw_t_from`
-and the port's own draws are checked at the distribution level.
+reference's normals and components through :meth:`GaussianSum.draw_from`
+and :meth:`GaussianSum.draw_t_from`, and the port's own draws are checked at the distribution level.
 
 The ``chol @ eps`` products are float32 matrix products: callers on a
 CUDA device keep ``torch.backends.cuda.matmul.allow_tf32`` off, or the
@@ -19,7 +20,7 @@ noise keeps only TF32's ~3 decimal digits.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -93,6 +94,16 @@ class GaussianSum:
         comp = torch.exp(self.log_const - 0.5 * quad)
         return torch.sum(self.weights * comp, dim=-1)
 
+    def logpdf(self, x: torch.Tensor) -> torch.Tensor:
+        """Log mixture pdf at ``x (..., Nx)`` by log-sum-exp over the
+        components, so a far point underflows to a finite log rather
+        than to ``log 0``; returns ``(...)``."""
+        x = torch.atleast_2d(x)
+        es = x[..., None, :] - self.means
+        quad = torch.einsum("...di,dij,...dj->...d", es, self.inv_cov, es)
+        logs = self.log_const - 0.5 * quad + torch.log(self.weights)
+        return torch.logsumexp(logs, dim=-1)
+
     def pdf_t(self, x: torch.Tensor) -> torch.Tensor:
         """Lanes-last mixture pdf: ``x`` is ``(Nx, ...)``; returns ``(...)``.
 
@@ -116,6 +127,36 @@ class GaussianSum:
         return total
 
     # ------------------------------------------------------------------
+    def draw(self, generator: torch.Generator, shape=(1,)) -> torch.Tensor:
+        """Draw ``(*shape, Nx)`` samples from ``generator``'s stream:
+        :meth:`draw_inputs`, then :meth:`draw_from`."""
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        size = math.prod(shape)
+        return self.draw_from(*self.draw_inputs(generator, size)).reshape(
+            shape + (self.n_dim,))
+
+    def draw_inputs(self, generator: torch.Generator, size: int):
+        """``(eps (size, Nx) standard normals, comp (size,) int64
+        component indices)`` for :meth:`draw_from`, from ``generator``'s
+        stream on the mixture's device."""
+        probs = (self.weights / self.weights.sum()).to(torch.float64)
+        comp = torch.multinomial(probs, size, replacement=True,
+                                 generator=generator)
+        eps = torch.randn((size, self.n_dim), dtype=self.means.dtype,
+                          generator=generator, device=self.means.device)
+        return eps, comp
+
+    def draw_from(self, eps: torch.Tensor, comp: torch.Tensor) -> torch.Tensor:
+        """The deterministic core of :meth:`draw`: sample ``k`` is
+        ``means[comp_k] + chol[comp_k] @ eps_k``, every component's affine
+        computed and the sample's selected by a one-hot, in the
+        reference's order."""
+        onehot = (comp[:, None] == torch.arange(
+            self.n_components, device=comp.device)).to(eps.dtype)  # (n, Nd)
+        scaled = torch.einsum("nj,dij->ndi", eps, self.chol)       # (n, Nd, Nx)
+        return onehot @ self.means + torch.sum(onehot[:, :, None] * scaled,
+                                               dim=1)
+
     def draw_t(self, generator: torch.Generator, size: int) -> torch.Tensor:
         """Lanes-last draw ``(Nx, size)`` from ``generator``'s stream.
 
@@ -160,3 +201,51 @@ class GaussianSum:
         """Mixture mean (weights normalized)."""
         w = self.weights / torch.sum(self.weights)
         return w @ self.means
+
+    def covariance(self) -> torch.Tensor:
+        """Mixture covariance (law of total covariance)."""
+        w = self.weights / torch.sum(self.weights)
+        d = self.means - w @ self.means
+        return (torch.einsum("d,dij->ij", w, self.covariances)
+                + torch.einsum("d,di,dj->ij", w, d, d))
+
+    def to(self, device) -> "GaussianSum":
+        """The same mixture with every field on ``device``."""
+        return GaussianSum(*(getattr(self, f.name).to(device)
+                             for f in fields(self)))
+
+
+class MultivariateGaussianSum:
+    """Stateful shell with the reference's constructor and method surface.
+
+    ``library=`` is accepted and ignored. Each :meth:`draw` advances a
+    ``torch.Generator`` on ``device`` seeded from ``seed`` (the reference
+    splits a PRNG key); the two streams differ.
+    """
+
+    def __init__(self, means, covariances, weights, library=None,
+                 seed: int = 0, device="cpu"):
+        del library
+        self.dist = GaussianSum.create(means, covariances, weights,
+                                       device=device)
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.means = self.dist.means
+        self.covariances = self.dist.covariances
+        self.weights = self.dist.weights
+
+    @property
+    def _Nd(self) -> int:
+        return self.dist.n_components
+
+    @property
+    def _Nx(self) -> int:
+        return self.dist.n_dim
+
+    def pdf(self, x):
+        return self.dist.pdf(x)
+
+    def logpdf(self, x):
+        return self.dist.logpdf(x)
+
+    def draw(self, shape=(1,)):
+        return self.dist.draw(self.generator, shape)

@@ -1,10 +1,13 @@
-"""Build ``csrc/*.cu`` with nvcc into one shared library and load it.
+"""Build ``csrc/*.cu`` with nvcc into one shared library, load it, and
+check what the wrappers hand to it.
 
 The library has a plain C interface and is bound with ``ctypes``; it
-includes no PyTorch header, so ``nvcc`` takes seconds. The output lands
-in ``gpu_se_tpu_torch/_build/`` under a name keyed by a hash of the
-sources and flags, is built at first use and reused after. Only a CUDA
-tensor reaches :func:`load_library`; a missing ``nvcc`` raises.
+includes no PyTorch header, so ``nvcc`` takes seconds. Each ``*.cu``
+compiles in its own ``nvcc`` process, all started together, then one
+more links them. The output lands in ``gpu_se_tpu_torch/_build/`` under
+a name keyed by a hash of the flags, the sources and the ``*.cuh``
+headers they include, is built at first use and reused after. Only a
+CUDA tensor reaches :func:`load_library`; a missing ``nvcc`` raises.
 """
 from __future__ import annotations
 
@@ -17,12 +20,14 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -37,11 +42,24 @@ _SIGNATURES = {
     # ends, payload, rows, n, block_counts, block_offsets,
     # c_keys, c_payload, c_idx, count, stream
     "gst_compact": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # ends, n_blk, parts, nx, slot0, n_local, counts, acc, cols,
+    # finalized, stream
+    "gst_ends_merge_round": [_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+    # cs, payload, rows, r, n, out, anc, stream
+    "gst_cumsum_merge": [_P, _P, _I, _P, _I, _P, _P, _P],
+    # ends, o, payload, rows, n, out, anc, stream
+    "gst_coarse_gather": [_P, _P, _P, _I, _I, _P, _P, _P],
 }
 
 
 def sources() -> list[pathlib.Path]:
+    """The translation units: every ``csrc/*.cu``."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[pathlib.Path]:
+    """The shared headers the sources include: every ``csrc/*.cuh``."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -59,10 +77,36 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgst_kernels_{h.hexdigest()[:16]}.so"
+
+
+def commands(nvcc: str, out: str, obj_dir: str):
+    """``(compiles, link)``: one ``nvcc -c`` per source into ``obj_dir``
+    (the headers found through ``-I csrc``), then the link into ``out``."""
+    objs = [os.path.join(obj_dir, src.stem + ".o") for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", obj]
+                for src, obj in zip(sources(), objs)]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]
+    return compiles, link
+
+
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        output, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, output)
+    if failed is not None:
+        cmd, rc, output = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
 
 
 def build() -> pathlib.Path:
@@ -73,19 +117,12 @@ def build() -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build to a private name and rename, so concurrent builds never
     # load a half-written file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = os.path.join(tmp, "lib.so")
+        compiles, link = commands(_nvcc(), lib, tmp)
+        _run_all(compiles)
+        _run_all([link])
+        os.replace(lib, out)
     return out
 
 
@@ -102,3 +139,39 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+# ----------------------------------------------------------------------
+# what every wrapper checks before a launch
+# ----------------------------------------------------------------------
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+          device: torch.device) -> None:
+    """Raise unless ``t`` has ``dtype``, ``ndim`` dims, lies on ``device``
+    and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-d, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch_check(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -40,31 +40,6 @@ from gpu_se_tpu_torch.ops.resample_coarse import (
 INT32_MAX = 2**31 - 1
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim}-d, got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _launch_check(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {t.device}")
-
-
 # ----------------------------------------------------------------------
 # K1 search_gather
 # ----------------------------------------------------------------------
@@ -88,16 +63,16 @@ def search_gather(keys: torch.Tensor, payload: torch.Tensor,
     ``j_i`` is the first ``j`` with ``keys[j] >= i``.
     """
     dev = keys.device
-    _check("keys", keys, torch.int32, 1, dev)
-    _check("payload", payload, torch.float32, 2, dev)
+    _build.check("keys", keys, torch.int32, 1, dev)
+    _build.check("payload", payload, torch.float32, 2, dev)
     n = keys.shape[0]
     if n == 0 or payload.shape[1] != n:
         raise ValueError(f"payload {tuple(payload.shape)} vs keys ({n},)")
     if src_idx is not None:
-        _check("src_idx", src_idx, torch.int32, 1, dev)
+        _build.check("src_idx", src_idx, torch.int32, 1, dev)
         if src_idx.shape[0] != n:
             raise ValueError(f"src_idx {tuple(src_idx.shape)} vs keys ({n},)")
-    if not _on_cuda(keys):
+    if not _build.on_cuda(keys):
         return search_gather_plain(keys, payload, src_idx)
     lib = _build.load_library()
     rows = payload.shape[0]
@@ -108,8 +83,8 @@ def search_gather(keys: torch.Tensor, payload: torch.Tensor,
             keys.data_ptr(), n, payload.data_ptr(), rows,
             None if src_idx is None else src_idx.data_ptr(), n,
             out.data_ptr(), anc.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check("search_gather", rc)
+            _build.stream(dev))
+    _build.launch_check("search_gather", rc)
     search_gather.launches += 1
     return out, anc
 
@@ -147,12 +122,12 @@ def compact(ends: torch.Tensor, payload: torch.Tensor):
     is a ``(1,)`` int32 tensor on the device (no host sync).
     """
     dev = ends.device
-    _check("ends", ends, torch.int32, 1, dev)
-    _check("payload", payload, torch.float32, 2, dev)
+    _build.check("ends", ends, torch.int32, 1, dev)
+    _build.check("payload", payload, torch.float32, 2, dev)
     n = ends.shape[0]
     if n == 0 or payload.shape[1] != n:
         raise ValueError(f"payload {tuple(payload.shape)} vs ends ({n},)")
-    if not _on_cuda(ends):
+    if not _build.on_cuda(ends):
         return compact_plain(ends, payload)
     lib = _build.load_library()
     rows = payload.shape[0]
@@ -167,8 +142,8 @@ def compact(ends: torch.Tensor, payload: torch.Tensor):
             ends.data_ptr(), payload.data_ptr(), rows, n,
             scratch[0].data_ptr(), scratch[1].data_ptr(),
             c_keys.data_ptr(), c_payload.data_ptr(), c_idx.data_ptr(),
-            count.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _launch_check("compact", rc)
+            count.data_ptr(), _build.stream(dev))
+    _build.launch_check("compact", rc)
     compact.launches += 1
     return c_keys, c_payload, c_idx, count
 
@@ -195,10 +170,83 @@ def resample_core_plain(x: torch.Tensor, ends: torch.Tensor):
 
 def systematic_resample_tiled(particles: torch.Tensor, weights: torch.Tensor,
                               r):
-    """Systematic resample of ``particles (n, nx)`` float32 by
-    ``weights (n,)`` and the uniform ``r``; returns
-    ``(resampled (n, nx), ancestors (n,) int32)``. Any ``n >= 1`` and any
-    ``nx`` (the reference's entry takes ``nx <= 5``)."""
+    """Systematic resample of ``particles (n, nx)`` by ``weights (n,)``
+    and the uniform ``r``; returns ``(resampled (n, nx) float32,
+    ancestors (n,) int32)``. Any ``n >= 1`` and any ``nx`` (the
+    reference's entry takes ``nx <= 5``)."""
     ends = ends_from_weights(weights, r)
-    out, anc = resample_core(particles.T.contiguous(), ends)
+    out, anc = resample_core(particles.to(torch.float32).T.contiguous(), ends)
     return out.T, anc
+
+
+# ----------------------------------------------------------------------
+# the router's gates, and the Gaussian-bank entry
+# ----------------------------------------------------------------------
+IDX_ROW = 5          # the reference's tile rows 0..4 carry the payload
+V4_BLOCK = 4096
+
+
+def _pad_n(n: int, block: int) -> int:
+    return -(-n // block) * block
+
+
+def v4_applicable(first_leaf, n: int, block: int = V4_BLOCK) -> bool:
+    """The reference's shape gate for its tiled kernel: an ``(n, <=5)``
+    payload and ``2^12 <= n`` with ``n`` padded to a block multiple at
+    most ``2^24`` (its tile rows hold indices as exact float32). The
+    port's kernels have neither limit; the gate is kept so that the same
+    shapes take the same routes."""
+    return (
+        first_leaf.dim() == 2
+        and first_leaf.shape[1] <= IDX_ROW
+        and n >= 2**12
+        and _pad_n(n, block) <= 2**24
+    )
+
+
+def bank_rows(nx: int) -> int:
+    """The reference's tile height for the (means, covariances) bank:
+    ``nx`` means + ``nx(nx+1)/2`` upper-triangle covariance entries + 3
+    scratch rows, rounded up to 8."""
+    cols = nx + nx * (nx + 1) // 2
+    return ((cols + 3 + 7) // 8) * 8
+
+
+def bank_applicable(means, covs, n: int, block: int = V4_BLOCK) -> bool:
+    """Gate of :func:`systematic_resample_bank`: ``(n, nx)`` and
+    ``(n, nx, nx)`` float32, ``bank_rows(nx) <= 32`` and the size limits
+    of :func:`v4_applicable`."""
+    if means.dim() != 2 or covs.dim() != 3:
+        return False
+    nx = means.shape[1]
+    return (
+        tuple(covs.shape[1:]) == (nx, nx)
+        and means.dtype == torch.float32 and covs.dtype == torch.float32
+        and bank_rows(nx) <= 32
+        and n >= 2**12 and _pad_n(n, block) <= 2**24
+    )
+
+
+def systematic_resample_bank(means: torch.Tensor, covs: torch.Tensor,
+                             weights: torch.Tensor, r):
+    """Systematic resample of a Gaussian bank through :func:`compact` and
+    :func:`search_gather` on one ``(nx + nx(nx+1)/2, n)`` payload: the
+    means and the upper triangle of each covariance, mirrored back after.
+
+    ``covs`` must be exactly symmetric; then the result is bit-equal to
+    the plain resample of ``(means, covs)``. Returns ``(new_means,
+    new_covs, ancestors)``.
+    """
+    n, nx = means.shape
+    if not bank_applicable(means, covs, n):
+        raise ValueError(f"bank of means {tuple(means.shape)} {means.dtype},"
+                         f" covs {tuple(covs.shape)} {covs.dtype}")
+    ti, tj = torch.triu_indices(nx, nx, device=means.device)
+    payload = torch.cat([means.T, covs[:, ti, tj].T]).contiguous()
+    out, anc = resample_core(payload, ends_from_weights(weights, r))
+    # entry (i, j) of a covariance is triangle column k of (min, max)
+    k_of = torch.empty((nx, nx), dtype=torch.int64, device=means.device)
+    k_of[ti, tj] = torch.arange(ti.shape[0], device=means.device)
+    k_of[tj, ti] = k_of[ti, tj]
+    new_covs = out[nx:][k_of.reshape(-1)].T.reshape(n, nx, nx)
+    return out[:nx].T, new_covs, anc

@@ -5,7 +5,9 @@ on both sides, so the factors agree bit for bit. ``pdf_t`` and ``pdf``
 agree to ``rtol=1e-5`` (``exp`` differs by a few ulps between the two
 libraries). ``draw_t_from`` fed the reference's own normals and uniforms
 agrees to ``rtol=1e-6, atol=1e-7``: the ``chol @ eps`` products sum in a
-different order.
+different order; so does ``draw_from`` fed the reference ``draw``'s
+normals and component indices. The port's own draws are checked at the
+distribution level, by component.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import torch
 from gpu_se_tpu.distributions import GaussianSum as JGS
 from gpu_se_tpu_torch import convert
 from gpu_se_tpu_torch.distributions import GaussianSum as TGS
+from gpu_se_tpu_torch.distributions import MultivariateGaussianSum
 
 X_SS = np.array([280 / 180, 640 / 24.6, 1000 / 116, 0.0, 0.0])
 FIELDS = ("means", "covariances", "weights", "chol", "inv_cov", "log_const")
@@ -125,3 +128,87 @@ def test_draw_t_distribution(name):
     # slack; a factor 3 covers the mixtures' heavier tails
     se = np.sqrt(3 * (np.outer(sd**2, sd**2) + cov**2) / size)
     assert np.all(np.abs(got_cov - cov) < 4 * se)
+
+
+@pytest.mark.parametrize("name", sorted(MIXTURES))
+def test_logpdf_and_covariance_vs_jax(name):
+    jgs, tgs = _pair(name)
+    nx = jgs.n_dim
+    rng = np.random.default_rng(2)
+    mu = np.asarray(jgs.means)[0]
+    spread = np.sqrt(np.diagonal(np.asarray(jgs.covariances)[0]))
+    # out to 40 standard deviations, where the linear pdf underflows
+    x = (mu + 40.0 * spread * rng.standard_normal((1000, nx))
+         ).astype(np.float32)
+    want = np.asarray(jgs.logpdf(jnp.asarray(x)))
+    got = tgs.logpdf(torch.from_numpy(x)).numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tgs.covariance().numpy(),
+                               np.asarray(jgs.covariance()),
+                               rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["state_noise", "three_component"])
+def test_draw_from_vs_jax_draw(name):
+    """The reference's ``draw`` splits its key into (kc, kn): component
+    indices from kc, normals ``(size, Nx)`` from kn. Fed those, the port
+    draws the same samples (the ``chol @ eps`` sums in another order)."""
+    jgs, _ = _pair(name)
+    tgs = convert.gaussian_sum_from_numpy(
+        *(np.asarray(getattr(jgs, f)) for f in FIELDS))
+    size = 4096
+    key = jax.random.PRNGKey(6)
+    want = np.asarray(jgs.draw(key, (size,)))
+    kc, kn = jax.random.split(key)
+    comp = np.array(jax.random.categorical(kc, jnp.log(jgs.weights),
+                                           shape=(size,)))
+    eps = np.array(jax.random.normal(kn, (size, jgs.n_dim), jnp.float32))
+    got = tgs.draw_from(torch.from_numpy(eps), torch.from_numpy(comp))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+def _component_stats_ok(tgs, comp, draws, size):
+    """Component shares within 4 binomial standard errors, and each
+    component's sample mean and covariance within 4 standard errors of
+    its own (a factor 3 on the covariance's for kurtosis slack)."""
+    w = tgs.weights.double().numpy()
+    w = w / w.sum()
+    for d in range(tgs.n_components):
+        pick = draws[comp == d]
+        m = len(pick)
+        assert abs(m / size - w[d]) < 4 * np.sqrt(w[d] * (1 - w[d]) / size)
+        cov = tgs.covariances[d].double().numpy()
+        sd = np.sqrt(np.diag(cov))
+        mean_err = pick.mean(axis=0) - tgs.means[d].double().numpy()
+        assert np.all(np.abs(mean_err) < 4 * sd / np.sqrt(m)), d
+        se = np.sqrt(3 * (np.outer(sd**2, sd**2) + cov**2) / m)
+        assert np.all(np.abs(np.cov(pick.T) - cov) < 4 * se), d
+
+
+@pytest.mark.parametrize("name", ["x0", "measurement", "three_component"])
+def test_draw_distribution(name):
+    """The port's own ``draw`` at 2^16: by component."""
+    tgs = TGS.create(*MIXTURES[name])
+    size = 2**16
+    eps, comp = tgs.draw_inputs(torch.Generator().manual_seed(1), size)
+    draws = tgs.draw_from(eps, comp).double().numpy()
+    _component_stats_ok(tgs, comp.numpy(), draws, size)
+    again = tgs.draw(torch.Generator().manual_seed(1), (2, size // 2))
+    assert again.shape == (2, size // 2, tgs.n_dim)
+    np.testing.assert_array_equal(again.reshape(size, -1).numpy(),
+                                  draws.astype(np.float32))
+
+
+def test_multivariate_gaussian_sum_shell():
+    means, covs, w = MIXTURES["measurement"]
+    shell = MultivariateGaussianSum(means, covs, w, library="numpy", seed=3)
+    assert (shell._Nd, shell._Nx) == (2, 2)
+    assert shell.means is shell.dist.means
+    first, second = shell.draw((8,)), shell.draw((8,))
+    assert first.shape == (8, 2) and not torch.equal(first, second)
+    again = MultivariateGaussianSum(means, covs, w, seed=3).draw((8,))
+    assert torch.equal(first, again)
+    x = torch.zeros((4, 2))
+    assert torch.equal(shell.pdf(x), shell.dist.pdf(x))
+    assert torch.equal(shell.logpdf(x), shell.dist.logpdf(x))

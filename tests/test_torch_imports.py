@@ -18,7 +18,10 @@ def _modules():
 
 def test_imports_with_jax_blocked():
     mods = list(_modules())
-    assert "gpu_se_tpu_torch.ops.resample_pallas4" in mods
+    for name in ("ops.resample_pallas4", "ops.resample_pallas_block",
+                 "ops.resample_pallas3", "ops.resample_pallas", "ops.reduce",
+                 "filters.particle", "filters.resampling", "pytree"):
+        assert f"gpu_se_tpu_torch.{name}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

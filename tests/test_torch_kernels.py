@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions, and the port's CUDA path
-against the committed reference step.
+"""The CUDA kernels against their plain versions, the port's CUDA path
+against the committed reference step, and the router's routes and the
+flat filter on the card (each route launching its kernel).
 
 This file imports no JAX, so it also runs where JAX is not installed
 (``--noconftest`` skips ``tests/conftest.py``, which imports JAX). The
@@ -11,6 +12,7 @@ The kernels are integer logic plus copies, so every output must equal
 the plain version's bit for bit (``torch.equal``).
 """
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -18,10 +20,15 @@ import torch
 
 from gpu_se_tpu_torch import convert
 from gpu_se_tpu_torch.distributions import GaussianSum
+from gpu_se_tpu_torch.filters import particle as pf
 from gpu_se_tpu_torch.filters import particle_tiled as pft
+from gpu_se_tpu_torch.filters import resampling as rs
 from gpu_se_tpu_torch.models import bioreactor as bio
 from gpu_se_tpu_torch.ops import _build
+from gpu_se_tpu_torch.ops import resample_coarse as rc
+from gpu_se_tpu_torch.ops import resample_pallas3 as rp3
 from gpu_se_tpu_torch.ops import resample_pallas4 as rp4
+from gpu_se_tpu_torch.ops import resample_pallas_block as rpb
 from gpu_se_tpu_torch.ops.resample_coarse import ends_from_weights
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "data",
@@ -73,7 +80,31 @@ def test_library_name_tracks_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
-    assert [p.name for p in _build.sources()] == ["resample.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "resample.cu", "resample_block.cu", "resample_coarse.cu",
+        "resample_merge.cu"]
+
+
+def test_library_name_tracks_headers(tmp_path, monkeypatch):
+    """Editing a shared ``*.cuh`` header changes the library's name, so
+    the card never loads a library built from the old header; headers
+    are found through ``-I csrc`` and never compiled on their own."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.headers()] == ["lower_bound.cuh"]
+    before = _build.library_path()
+    header = csrc / "lower_bound.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert _build.library_path() != before
+    compiles, link = _build.commands("nvcc", "lib.so", str(tmp_path))
+    assert [c[c.index("-c") + 1] for c in compiles] == [
+        str(p) for p in _build.sources()]
+    for cmd in compiles:
+        assert cmd[cmd.index("-I") + 1] == str(csrc)
+        assert "-shared" not in cmd
+    assert "-shared" in link
+    assert not any(a.endswith(".cuh") for c in compiles + [link] for a in c)
 
 
 @pytest.mark.gpu
@@ -151,3 +182,199 @@ def test_cuda_step_matches_reference_fixture(cuda, regime):
                                rtol=1e-5, atol=0)
     got = pft.step_from_noise(*args, t("noise"), t("r")).cpu().numpy()
     assert np.count_nonzero(np.any(got != want, axis=0)) <= STEP_TIE_ROWS
+
+
+# ----------------------------------------------------------------------
+# the merge kernels: ends_merge_round and cumsum_merge
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n", [4096, 5120, 2**20])
+def test_merge_kernels_equal_plain_on_card(cuda, n, family):
+    _, w, r = _case(n, family)
+    rng = np.random.default_rng(n)
+    w_d, r_d = torch.from_numpy(w).to(cuda), torch.tensor(r, device=cuda)
+    ends = ends_from_weights(w_d, r_d)
+    cs = rp3.normalized_cumsum(w_d)
+    launches = (rpb.ends_merge_round.launches, rp3.cumsum_merge.launches)
+    for nx in (5, 30):
+        parts = torch.from_numpy(
+            rng.standard_normal((n, nx)).astype(np.float32)).to(cuda)
+        got = rpb.ends_merge_round(ends, parts, 0,
+                                   *rpb.block_resample_state(n, nx, cuda))
+        want = rpb.ends_merge_round_plain(
+            ends, parts, 0, *rpb.block_resample_state(n, nx, cuda))
+        for g, wt in zip(got, want):
+            assert torch.equal(g, wt)
+    for rows in (5, 8):
+        payload = torch.from_numpy(
+            rng.standard_normal((rows, n)).astype(np.float32)).to(cuda)
+        for g, wt in zip(rp3.cumsum_merge(cs, payload, r_d),
+                         rp3.cumsum_merge_plain(cs, payload, r_d)):
+            assert torch.equal(g, wt)
+    torch.cuda.synchronize()
+    assert (rpb.ends_merge_round.launches, rp3.cumsum_merge.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n", [4096, 5120, 2**20])
+def test_coarse_gather_equals_plain_on_card(cuda, n, family):
+    _, w, r = _case(n, family)
+    rng = np.random.default_rng(n + 1)
+    ends = ends_from_weights(torch.from_numpy(w).to(cuda),
+                             torch.tensor(r, device=cuda))
+    o = rc.chunk_boundaries(ends, n)
+    launches = rc.coarse_gather.launches
+    for rows in (5, 6):
+        payload = torch.from_numpy(
+            rng.standard_normal((rows, n)).astype(np.float32)).to(cuda)
+        for g, wt in zip(rc.coarse_gather(ends, o, payload),
+                         rc.coarse_gather_plain(ends, o, payload)):
+            assert torch.equal(g, wt)
+    torch.cuda.synchronize()
+    assert rc.coarse_gather.launches == launches + 2
+
+
+@pytest.mark.gpu
+def test_ends_merge_four_block_feed_on_card(cuda):
+    """Four ascending source blocks into four shards (``slot0``
+    offsets) equal one round over the whole pool."""
+    n, q = 2**20, 4
+    parts, w, r = _case(n, "heavy", nx=5)
+    x = torch.from_numpy(parts.T.copy()).to(cuda)
+    ends = ends_from_weights(torch.from_numpy(w).to(cuda),
+                             torch.tensor(r, device=cuda))
+    whole = rpb.ends_merge_round(ends, x, 0,
+                                 *rpb.block_resample_state(n, 5, cuda))
+    n_blk = n_local = n // q
+    for s in range(q):
+        state = rpb.block_resample_state(n_local, 5, cuda)
+        for b in range(q):
+            sl = slice(b * n_blk, (b + 1) * n_blk)
+            state = rpb.ends_merge_round(ends[sl].contiguous(),
+                                         x[sl].contiguous(), s * n_local,
+                                         *state)
+        rows = slice(s * n_local, (s + 1) * n_local)
+        for g, wt in zip(state, whole):
+            assert torch.equal(g, wt[rows])
+
+
+@pytest.mark.gpu
+def test_router_auto_routes_launch_their_kernels_on_card(cuda):
+    """Auto on CUDA tensors: ``(n, 5)`` takes compact + search_gather,
+    ``(n, 8)`` the cumsum merge, a (means, covs) bank the ends merge
+    and ``systematic_resample_bank`` compact + search_gather; each equals
+    its route's plain versions on the same tensors. ``impl("coarse")``
+    takes the coarse search."""
+    n = 2**16
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(np.exp(4.0 * rng.standard_normal(n)).astype(
+        np.float32)).to(cuda)
+    r = torch.tensor(np.float32(0.37), device=cuda)
+
+    def rand(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    def counts():
+        return (rp4.compact.launches, rp4.search_gather.launches,
+                rpb.ends_merge_round.launches, rp3.cumsum_merge.launches,
+                rc.coarse_gather.launches)
+
+    x5, x8, means = rand(n, 5), rand(n, 8), rand(n, 5)
+    a = rand(n, 5, 5)
+    covs = a + a.transpose(1, 2)
+    ends = ends_from_weights(w, r)
+    idx = rs.indices_from_ends(ends).long()
+
+    c0 = counts()
+    got, _ = rs.systematic_resample_from_r(x5, w, r)
+    assert torch.equal(got, x5[idx])
+    c1 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == (1, 1)
+    got, _ = rs.systematic_resample_from_r(x8, w, r)
+    want, _ = rp3.cumsum_merge_plain(rp3.normalized_cumsum(w),
+                                     x8.T.contiguous(), r)
+    assert torch.equal(got, want.T)
+    c2 = counts()
+    assert c2[3] - c1[3] == 1
+    (gm, gc), _ = rs.systematic_resample_from_r((means, covs), w, r)
+    assert torch.equal(gm, means[idx]) and torch.equal(gc, covs[idx])
+    c3 = counts()
+    assert c3[2] - c2[2] == 1
+    (gm, gc), _ = rs.systematic_resample_bank_from_r(means, covs, w, r)
+    assert torch.equal(gm, means[idx]) and torch.equal(gc, covs[idx])
+    c4 = counts()
+    assert (c4[0] - c3[0], c4[1] - c3[1]) == (1, 1)
+    with rs.impl("coarse"):
+        got, _ = rs.systematic_resample_from_r(x5, w, r)
+    assert torch.equal(got, x5[idx])
+    assert rc.coarse_gather.launches - c4[4] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route, kernel", [("ends", "ends_merge_round"),
+                                           ("v3", "cumsum_merge"),
+                                           ("pallas", "cumsum_merge"),
+                                           ("coarse", "coarse_gather"),
+                                           ("auto", "search_gather")])
+def test_flat_filter_steps_on_card(cuda, route, kernel):
+    """Three chained ``ParticleFilter`` steps at 2^16 through a route:
+    one launch of the route's kernel per step, finite moments."""
+    x_ss = np.array([280 / 180, 640 / 24.6, 1000 / 116, 0.0, 0.0])
+    state_noise = (np.zeros((2, 5)),
+                   np.stack([np.diag([1e-4, 1e-7, 1e-3, 1e-3, 1e-7]),
+                             np.diag([1e-3, 1e-6, 1e-2, 1e-2, 1e-6])]),
+                   np.array([0.75, 0.25]))
+    x0 = GaussianSum.create(state_noise[0] + x_ss, *state_noise[1:],
+                            device=cuda)
+    meas = GaussianSum.create(
+        np.array([[1e-1, 0], [0, -1e-1]]),
+        np.array([[[6e-2, 0], [0, 8e-2]], [[500, 100], [100, 700]]]),
+        np.array([0.85, 0.15]), device=cuda)
+    filt = pf.ParticleFilter(bio.homeostatic_des, bio.static_outputs, 2**16,
+                             x0, GaussianSum.create(*state_noise,
+                                                    device=cuda),
+                             meas, seed=1)
+    fn = {"ends_merge_round": rpb.ends_merge_round,
+          "cumsum_merge": rp3.cumsum_merge,
+          "coarse_gather": rc.coarse_gather,
+          "search_gather": rp4.search_gather}[kernel]
+    u = torch.tensor([0.06, 0.2], device=cuda)
+    z = bio.static_outputs(torch.from_numpy(x_ss)).to(torch.float32).to(cuda)
+    before = fn.launches
+    with rs.impl(route):
+        for _ in range(3):
+            filt.step(u, z, 0.1)
+    torch.cuda.synchronize()
+    assert fn.launches - before == 3
+    est, cov = filt.moments()
+    assert torch.isfinite(est).all() and torch.isfinite(cov)
+
+
+@pytest.mark.gpu
+def test_philox_draw_distribution_on_card(cuda):
+    """The card's ``draw`` at 2^20: component shares, and each
+    component's mean and covariance (4 standard errors)."""
+    gs = GaussianSum.create(
+        np.array([[1e-1, 0], [0, -1e-1]]),
+        np.array([[[6e-2, 0], [0, 8e-2]], [[500, 100], [100, 700]]]),
+        np.array([0.85, 0.15]), device=cuda)
+    size = 2**20
+    eps, comp = gs.draw_inputs(torch.Generator(device=cuda).manual_seed(0),
+                               size)
+    draws = gs.draw_from(eps, comp).double().cpu().numpy()
+    comp = comp.cpu().numpy()
+    w = np.array([0.85, 0.15])
+    for d in range(2):
+        pick = draws[comp == d]
+        m = len(pick)
+        assert abs(m / size - w[d]) < 4 * np.sqrt(w[d] * (1 - w[d]) / size)
+        cov = gs.covariances[d].double().cpu().numpy()
+        sd = np.sqrt(np.diag(cov))
+        mean_err = pick.mean(axis=0) - gs.means[d].double().cpu().numpy()
+        assert np.all(np.abs(mean_err) < 4 * sd / np.sqrt(m))
+        se = np.sqrt(3 * (np.outer(sd**2, sd**2) + cov**2) / m)
+        assert np.all(np.abs(np.cov(pick.T) - cov) < 4 * se)

@@ -78,6 +78,18 @@ def test_blocked_cummax_exact(n):
     np.testing.assert_array_equal(got, np.maximum.accumulate(e))
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 5000])
+def test_blocked_cummax_matches_sequential_scan(n, dtype):
+    """Integer and float inputs, across the 1024-entry row joins; the
+    float scan (the merge routes' normalized cumsum) starts from -inf."""
+    rng = np.random.default_rng([n, 1])
+    e = (rng.standard_normal(n) * 100 - 50).astype(dtype)
+    got = blocked_cummax(torch.from_numpy(e)).numpy()
+    assert got.dtype == e.dtype
+    np.testing.assert_array_equal(got, np.maximum.accumulate(e))
+
+
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("n", SIZES)
 def test_compact_plain_vs_flatnonzero(n, family):
