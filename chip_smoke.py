@@ -17,7 +17,7 @@ Phases, each of which raises on failure:
    plain resample, and each stage and each kernel is timed;
 6. the flat main path: a ``ParticleFilter`` on the closed loop's
    configuration at 2^20 particles, one warm-up and 50 chained steps
-   under auto routing (compact + search_gather), then 10 chained steps
+   under auto routing (compact + expand), then 10 chained steps
    under each of the ``ends``, ``v3``, ``pallas`` and ``coarse`` routes
    (the ends merge, the cumsum merge, the coarse search); each route's
    kernel must have launched once per step, and one step per route is
@@ -25,17 +25,40 @@ Phases, each of which raises on failure:
 7. the router's other auto routes at full width: a ``(2^20, 8)``
    payload (cumsum merge), a 2^18 Gaussian bank through
    ``systematic_resample`` (ends merge) and ``systematic_resample_bank``
-   (compact + search_gather);
+   (compact + expand);
 8. the merge and coarse kernels timed against their plain versions at
    the flat main path's inputs;
 9. the flat step's stage times and, per route, ``torch.profiler`` over
    chained steps (device ops per step, busy share, the kernels with most
-   device time).
+   device time);
+10. the v2 path: the flat PF step of ``scripts/bench_v2.py`` (predict,
+    update, ``fused_systematic_resample_v2``, uniform weights) at 2^20
+    in each of its five ``(window, block)`` geometries, one warm-up and
+    10 chained steps each; ``compact`` and ``expand`` must launch once per
+    step, one step must equal the plain route bit for bit, and
+    ``expand`` is timed against its plain version at each block size;
+11. the GSUKF path: ``GaussianSumUnscentedKalmanFilter.step`` at 2^18
+    Gaussians on the bench rig, one warm-up and 30 chained steps;
+    ``compact`` and ``expand`` must launch once per step, the
+    covariances must stay exactly symmetric, one step must equal the
+    same step through the plain resample bit for bit; stage times and a
+    ``torch.profiler`` busy share. Its fixture
+    (``tests/data/torch_parity_gsukf.npz``) is checked in phase 4.
 
 Each path runs with every launch count set to 0 just before it and read
-just after. Output: one line per phase, then a ``{"kernels": [...]}``
-JSON line, the ``nvidia-smi`` line, the metric JSON line and, last,
-``{"ok": true, "device": {...}}``. Run from the repository root::
+just after; a kernel's ``launches`` is the sum over the paths. Every
+kernel's line carries its bound: the bytes it must move (each input
+read once, each output written once, counting only the survivors this
+run's weights leave where the kernel reads no other entry) over 3.35
+TB/s, or its compare and add operations over 67 T/s (the H100's float32
+rate outside the tensor cores; the table has no int32 row), whichever is
+larger. Kernels are timed by their device time under ``torch.profiler``;
+a kernel that updates its state in place gets a fresh state per call,
+made before the timed calls.
+
+Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
+``nvidia-smi`` line, the two metric JSON lines (tiled PF, GSUKF) and,
+last, ``{"ok": true, "device": {...}}``. Run from the repository root::
 
     python3 chip_smoke.py [--seed 0]
 """
@@ -43,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,14 +77,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gpu_se_tpu_torch import convert  # noqa: E402
+from gpu_se_tpu_torch import convert, rig  # noqa: E402
 from gpu_se_tpu_torch.distributions import GaussianSum  # noqa: E402
+from gpu_se_tpu_torch.filters import gs_ukf as gsf  # noqa: E402
 from gpu_se_tpu_torch.filters import particle as pf  # noqa: E402
 from gpu_se_tpu_torch.filters import particle_tiled as pft  # noqa: E402
 from gpu_se_tpu_torch.filters import resampling as rs  # noqa: E402
 from gpu_se_tpu_torch.models import bioreactor as bio  # noqa: E402
 from gpu_se_tpu_torch.ops import _build  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_coarse as rc  # noqa: E402
+from gpu_se_tpu_torch.ops import resample_pallas2 as rp2  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas3 as rp3  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas4 as rp4  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas_block as rpb  # noqa: E402
@@ -71,9 +97,18 @@ N = 2**20
 N_BANK = 2**18
 STEPS = 50
 ROUTE_STEPS = 10
+GSUKF_STEPS = 30
 REPS = 30
-FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "tests", "data", "torch_parity_step.npz")
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(REPO, "tests", "data", "torch_parity_step.npz")
+GSUKF_FIXTURE = os.path.join(REPO, "tests", "data",
+                             "torch_parity_gsukf.npz")
+# bench_v2.py's (window, block) geometries
+V2_GEOMETRIES = ((1024, 1024), (2048, 2048), (512, 512), (2048, 1024),
+                 (4096, 2048))
+# the published peaks of one H100 SXM (bytes/s, float32 operations/s)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
 # rows of a 4096-particle step that may differ from the reference's: one
 # per `ends` entry a cumsum tie moves (tests/test_torch_kernels.py)
 STEP_TIE_ROWS = 8
@@ -83,15 +118,13 @@ STEP_TIE_ROWS = 8
 # test_cross_route_tie_count); this is the margin over that reading
 MERGE_TIE_ROWS = 2
 W_RTOL = 1e-5        # measurement pdf: exp differs by ulps across libraries
-X_SS = np.array([280 / 180, 640 / 24.6, 1000 / 116, 0.0, 0.0])
+X_SS = rig.X_SS
 FAMILIES = ("uniform", "near_uniform", "heavy")
 # name: (source, the TPU kernels it replaces, its wrapper)
 KERNELS = {
-    "search_gather": ("gpu_se_tpu_torch/csrc/resample.cu",
-                      "gpu_se_tpu/ops/resample_pallas4.py:76",
-                      rp4.search_gather),
     "compact": ("gpu_se_tpu_torch/csrc/resample.cu",
-                "gpu_se_tpu/ops/resample_pallas4.py:266", rp4.compact),
+                "gpu_se_tpu/ops/resample_pallas4.py:266, "
+                "gpu_se_tpu/ops/resample_pallas2.py:69", rp4.compact),
     "ends_merge_round": ("gpu_se_tpu_torch/csrc/resample_block.cu",
                          "gpu_se_tpu/ops/resample_pallas_block.py:42, "
                          "gpu_se_tpu/ops/resample_pallas_block.py:231",
@@ -103,14 +136,19 @@ KERNELS = {
     "coarse_gather": ("gpu_se_tpu_torch/csrc/resample_coarse.cu",
                       "gpu_se_tpu/ops/resample_coarse.py:117",
                       rc.coarse_gather),
+    "expand": ("gpu_se_tpu_torch/csrc/resample_expand.cu",
+               "gpu_se_tpu/ops/resample_pallas4.py:76, "
+               "gpu_se_tpu/ops/resample_pallas2.py:178", rp4.expand),
 }
 # the kernel each flat-filter route must launch once per step
-ROUTE_KERNELS = {"auto": ("compact", "search_gather"),
+ROUTE_KERNELS = {"auto": ("compact", "expand"),
                  "ends": ("ends_merge_round",), "v3": ("cumsum_merge",),
                  "pallas": ("cumsum_merge",), "coarse": ("coarse_gather",)}
 # routes whose result must equal the plain route's bit for bit; the
 # merge routes may part from it at float ties (MERGE_TIE_ROWS)
 EXACT_ROUTES = ("auto", "ends", "coarse")
+# launches of each kernel summed over the paths (expect_counts)
+TALLY = {name: 0 for name in KERNELS}
 
 
 def zero_counts() -> None:
@@ -123,12 +161,15 @@ def read_counts() -> dict[str, int]:
 
 
 def expect_counts(path: str, counts: dict[str, int],
-                  want: dict[str, int]) -> None:
+                  want: dict[str, int], tally: bool = True) -> None:
     """Fail unless ``counts`` equals ``want`` (0 for every kernel not
-    named)."""
+    named); add a path's counts to ``TALLY``."""
     full = {name: want.get(name, 0) for name in KERNELS}
     if counts != full:
         raise AssertionError(f"{path}: launch counts {counts} != {full}")
+    if tally:
+        for name, c in counts.items():
+            TALLY[name] += c
 
 
 def log(msg: str) -> None:
@@ -136,7 +177,8 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = REPS) -> float:
-    """Median device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    """Median time of ``fn`` over ``reps`` synchronised calls, by CUDA
+    events around each call: the host's launch latency is in it."""
     for _ in range(3):
         fn()
     times = []
@@ -149,6 +191,63 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def least_time(nbytes: float, ops: float) -> tuple[float, str]:
+    """``(ms, "bytes" or "operations")``: the least time the card could
+    take, the larger of the bytes over the memory rate and the operations
+    over the float32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def search_ops(n: int, length: int) -> float:
+    """Compares of ``n`` binary searches over ``length`` entries."""
+    return n * max(1, math.ceil(math.log2(max(length, 2))))
+
+
+def gather_bound(n: int, m: int, rows: int, ops: float, extra_in: int = 0,
+                 compacted: bool = True):
+    """Bound of a search + gather: read the ``rows`` payload columns of
+    the ``m`` survivors (from compacted input also their key and original
+    index) and ``extra_in`` more bytes, write ``rows`` payload rows and
+    the ancestor of every slot; ``ops`` compares."""
+    per_survivor = 4 * rows + (8 if compacted else 0)
+    return least_time(m * per_survivor + extra_in + n * (4 * rows + 4), ops)
+
+
+def expand_bound(n: int, m: int, rows: int, block: int):
+    """Bound of :func:`~gpu_se_tpu_torch.ops.resample_pallas4.expand`: one
+    search of ``n`` keys per chunk, one of the ``block + 1`` staged keys
+    per slot."""
+    ops = search_ops(n, block + 1) + search_ops(-(-n // block), n)
+    return gather_bound(n, m, rows, ops)
+
+
+def device_ms(fn, reps: int = REPS, setup=None) -> float:
+    """Device time of one call of ``fn``: the union of its device ops'
+    intervals (``busy_ms``) over ``reps`` synchronised calls, by
+    ``torch.profiler``, divided by ``reps``. Unlike :func:`time_ms` it
+    leaves out the host's launch latency, which on this path is of the
+    kernels' own size. With ``setup``, each call is ``fn(*setup())`` on
+    arguments all made before the first call, so that their making is
+    not timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [setup() if setup else () for _ in range(reps + 3)]
+    for a in args[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for a in args[3:]:
+            fn(*a)
+            torch.cuda.synchronize()
+    busy, _, ops, _ = busy_ms(prof)
+    if not ops:
+        raise AssertionError("the profiler saw no device time")
+    return busy / reps
 
 
 def max_abs_err(got, want) -> float:
@@ -184,20 +283,9 @@ def rows_differ(got, want) -> int:
 
 
 def bench_rig(dev):
-    x0 = GaussianSum.create(
-        np.stack([X_SS, X_SS]),
-        np.stack([np.eye(5) * 1e-4, np.eye(5) * 1e-3]),
-        np.array([0.75, 0.25]), device=dev)
-    state_pdf = GaussianSum.create(
-        np.zeros((2, 5)),
-        np.stack([np.diag([1e-4, 1e-7, 1e-3, 1e-3, 1e-7]),
-                  np.diag([1e-3, 1e-6, 1e-2, 1e-2, 1e-6])]),
-        np.array([0.75, 0.25]), device=dev)
-    meas_pdf = GaussianSum.create(
-        np.array([[1e-1, 0], [0, -1e-1]]),
-        np.array([[[6e-2, 0], [0, 8e-2]], [[500, 100], [100, 700]]]),
-        np.array([0.85, 0.15]), device=dev)
-    return x0, state_pdf, meas_pdf
+    """``bench.py``'s ``(x0, state_pdf, meas_pdf)`` on ``dev``."""
+    return tuple(GaussianSum.create(*args, device=dev)
+                 for args in rig.bench_rig())
 
 
 # ----------------------------------------------------------------------
@@ -240,7 +328,7 @@ def harness_rig(dev):
 
 
 def phase_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
-    errs = {name: 0.0 for name in ("search_gather", "compact")}
+    errs = {name: 0.0 for name in ("expand", "compact")}
     rng = np.random.default_rng(seed)
     for n in (4096, 5001, N):
         for family in FAMILIES:
@@ -254,11 +342,10 @@ def phase_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
             assert_equal(f"compact n={n} {family}", got, want)
             errs["compact"] = max(errs["compact"], max_abs_err(got, want))
             for route, args in (("compacted", got[:3]), ("direct", (ends, x))):
-                g = rp4.search_gather(*args)
-                p = rp4.search_gather_plain(*args)
-                assert_equal(f"search_gather n={n} {family} {route}", g, p)
-                errs["search_gather"] = max(errs["search_gather"],
-                                            max_abs_err(g, p))
+                g = rp4.expand(*args)
+                p = rp4.expand_plain(*args)
+                assert_equal(f"expand n={n} {family} {route}", g, p)
+                errs["expand"] = max(errs["expand"], max_abs_err(g, p))
             torch.cuda.synchronize()
             log(f"kernels == plain: n={n} {family} "
                 f"(survivors {int(got[3].item())})")
@@ -384,6 +471,69 @@ def phase_fixture(dev) -> None:
                 f"differing {rows} (<= {STEP_TIE_ROWS})")
 
 
+def phase_fixture_gsukf(dev) -> dict[str, float]:
+    """The CUDA GSUKF step and the CUDA v2 entry against the committed
+    reference (``tests/data/torch_parity_gsukf.npz``): means bit-equal,
+    weights within ``W_RTOL``, covariances exactly symmetric; the bank
+    resample given the reference's ``ends`` bit-equal; the whole step, on
+    the card's own ``ends``, within ``STEP_TIE_ROWS`` rows; the v2 entry
+    bit-equal on integer weights."""
+    d = np.load(GSUKF_FIXTURE)
+    meas = convert.gaussian_sum_from_numpy(
+        *(d[f"meas_{f}"] for f in ("means", "covariances", "weights", "chol",
+                                   "inv_cov", "log_const")), device=dev)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    n = d["means_in"].shape[0]
+    noise = t(rig.gsukf_noise(d["noise_sd"], n, int(d["noise_seed"])))
+    f, g = bio.homeostatic_des, bio.static_outputs
+    means, covs = gsf.predict_core(t(d["means_in"]), t(d["covs_in"]),
+                                   t(d["u"]), t(d["dt"]), noise, f,
+                                   noise_is_lanes=True)
+    means, covs, w = gsf.update_core(means, covs, t(d["w_in"]), t(d["u"]),
+                                     t(d["z"]), g, meas)
+    if not torch.equal(covs, covs.mT):
+        raise AssertionError("GSUKF fixture: covariances not symmetric")
+    m_off = int(np.count_nonzero(means.cpu().numpy() != d["upd_means"]))
+    if m_off:
+        raise AssertionError(f"GSUKF fixture: {m_off} updated means differ")
+    w_rel = float(np.max(np.abs(w.cpu().numpy() - d["upd_w"]) / d["upd_w"]))
+    if not w_rel <= W_RTOL:
+        raise AssertionError(f"GSUKF fixture: weights off by {w_rel}")
+    ti, tj = torch.triu_indices(5, 5, device=dev)
+    payload = torch.cat([means.T, covs[:, ti, tj].T]).contiguous()
+    out, _ = rp4.resample_core(payload, t(d["ends"]))
+    if not np.array_equal(out[:5].T.cpu().numpy(), d["out_means"]):
+        raise AssertionError("GSUKF fixture: bank resample given the "
+                             "reference's ends differs")
+    (m2, c2), _ = gsf.step_from_noise(
+        t(d["means_in"]), t(d["covs_in"]), t(d["w_in"]), t(d["u"]),
+        t(d["z"]), t(d["dt"]), f, g, meas, noise, t(d["r"]),
+        noise_is_lanes=True)
+    rows = int(np.count_nonzero(
+        np.any(m2.cpu().numpy() != d["out_means"], axis=1)
+        | np.any(c2.cpu().numpy() != d["out_covs"], axis=(1, 2))))
+    if rows > STEP_TIE_ROWS:
+        raise AssertionError(f"GSUKF fixture: step, {rows} rows differ")
+    parts, w2, r2 = rig.v2_case(n, int(d["v2_seed"]))
+    zero_counts()
+    got = rp2.fused_systematic_resample_v2(
+        t(parts), t(w2), torch.tensor(r2, device=dev),
+        window=int(d["v2_window"]), block=int(d["v2_block"]))
+    torch.cuda.synchronize()
+    expect_counts("v2 fixture", read_counts(), {"compact": 1, "expand": 1},
+                  tally=False)
+    if not np.array_equal(got.cpu().numpy(), d["v2_out"]):
+        raise AssertionError("v2 fixture: the CUDA entry differs from the "
+                             "reference")
+    log(f"fixture GSUKF: updated means bit-equal, weights rel err "
+        f"{w_rel:.3g} (<= {W_RTOL}), covariances symmetric; bank resample "
+        f"given reference ends bit-equal; step rows differing {rows} (<= "
+        f"{STEP_TIE_ROWS}); v2 entry bit-equal to the reference")
+
+
 def phase_main_path(dev, seed: int, card: str):
     x0, state_pdf, meas_pdf = bench_rig(dev)
     u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
@@ -410,7 +560,7 @@ def phase_main_path(dev, seed: int, card: str):
     wall_s = time.perf_counter() - t0
     launches = read_counts()
     expect_counts("tiled main path", launches,
-                  {"compact": STEPS + 1, "search_gather": STEPS + 1})
+                  {"compact": STEPS + 1, "expand": STEPS + 1})
     est = pft.point_estimate(state)
     if not (torch.isfinite(state.x).all() and torch.isfinite(est).all()):
         raise AssertionError("non-finite state or point estimate")
@@ -444,40 +594,45 @@ def phase_main_path(dev, seed: int, card: str):
             x, u, z, dt, f, g, meas_pdf, noise),
         "ends": lambda: ends_from_weights(w, r),
         "compact": lambda: rp4.compact(ends, xn),
-        "search+gather": lambda: rp4.search_gather(c_keys, c_payload, c_idx),
+        "expand": lambda: rp4.expand(c_keys, c_payload, c_idx),
     }
     for name, fn in stage.items():
         log(f"stage {name}: {time_ms(fn):.4f} ms (median of {REPS}, "
-            f"{card})")
+            f"synchronised, {card})")
     errs = {
         "compact": max_abs_err(rp4.compact(ends, xn),
                                rp4.compact_plain(ends, xn)),
-        "search_gather": max_abs_err(
-            rp4.search_gather(c_keys, c_payload, c_idx),
-            rp4.search_gather_plain(c_keys, c_payload, c_idx)),
+        "expand": max_abs_err(rp4.expand(c_keys, c_payload, c_idx),
+                              rp4.expand_plain(c_keys, c_payload, c_idx)),
     }
     pairs = {
         "compact": (lambda: rp4.compact(ends, xn),
                     lambda: rp4.compact_plain(ends, xn)),
-        "search_gather": (
-            lambda: rp4.search_gather(c_keys, c_payload, c_idx),
-            lambda: rp4.search_gather_plain(c_keys, c_payload, c_idx)),
-        "search_gather direct route": (
-            lambda: rp4.search_gather(ends, xn),
-            lambda: rp4.search_gather_plain(ends, xn)),
+        "expand": (lambda: rp4.expand(c_keys, c_payload, c_idx),
+                   lambda: rp4.expand_plain(c_keys, c_payload, c_idx)),
+        "expand direct route": (lambda: rp4.expand(ends, xn),
+                                lambda: rp4.expand_plain(ends, xn)),
     }
     times = {}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain
-        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
-                          time_ms(plain))
+        p1, k1, k2, p2 = (device_ms(plain), device_ms(kern), device_ms(kern),
+                          device_ms(plain))
         times[name] = (min(k1, k2), min(p1, p2))
         log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{p1:.4f}/{p2:.4f} ms (median of {REPS}, {card})")
-    log(f"resample routes: compacted (compact + search_gather) "
-        f"{times['compact'][0] + times['search_gather'][0]:.4f} ms, direct "
-        f"(search_gather on ends) {times['search_gather direct route'][0]:.4f}"
-        f" ms ({card})")
+            f"{p1:.4f}/{p2:.4f} ms (device time, mean of {REPS}, {card})")
+    log(f"resample routes: compacted (compact + expand) "
+        f"{times['compact'][0] + times['expand'][0]:.4f} ms, direct "
+        f"(expand on ends) {times['expand direct route'][0]:.4f} ms "
+        f"({card})")
+    m = int(count.item())
+    # compact reads ends and the survivors' payload columns, writes keys,
+    # indices and payload of every entry
+    bounds = {"compact": least_time(4 * N + 20 * m + (8 + 20) * N, 2 * N),
+              "expand": expand_bound(N, m, 5, rp4.EXPAND_BLOCK)}
+    log(f"bounds: compact {bounds['compact'][0]:.4f} ms, expand "
+        f"{bounds['expand'][0]:.4f} ms ({bounds['expand'][1]}; {m} "
+        f"survivors of {N}, {card})")
 
     metric = {
         "metric": "pf_full_step_throughput_2^20_particles",
@@ -485,14 +640,13 @@ def phase_main_path(dev, seed: int, card: str):
         "ms_per_step": ms_per_step, "steps": STEPS, "seed": seed,
         "card": card,
     }
-    return launches, errs, times, metric
+    return errs, times, metric, bounds
 
 
 def phase_flat_pf(dev, seed: int, card: str):
     """The flat ``ParticleFilter`` at 2^20 particles on the closed loop's
-    configuration, through the entry points a user calls. Returns the
-    launch counts of its route runs, and a predicted-and-updated state
-    and ``r`` for the kernel timings."""
+    configuration, through the entry points a user calls. Returns a
+    predicted-and-updated state and ``r`` for the kernel timings."""
     x0, state_pdf, meas_pdf = harness_rig(dev)
     f, g = bio.homeostatic_des, bio.static_outputs
     u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
@@ -530,11 +684,10 @@ def phase_flat_pf(dev, seed: int, card: str):
             f"{ {k: v for k, v in counts.items() if v} }; point estimate "
             f"{[round(v, 5) for v in est.tolist()]}, covariance "
             f"{float(cov):.6g}")
-        return counts, ms
 
-    route_counts = {"auto": run("auto", STEPS, warm=1)[0]}
+    run("auto", STEPS, warm=1)
     for route in ("ends", "v3", "pallas", "coarse"):
-        route_counts[route] = run(route, ROUTE_STEPS)[0]
+        run(route, ROUTE_STEPS)
 
     # one step per route against the same step through the plain route
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
@@ -560,7 +713,7 @@ def phase_flat_pf(dev, seed: int, card: str):
 
     state = pf.update(pf.predict(filt.state, u, torch.tensor(dt, device=dev),
                                  f, state_pdf), u, z, g, meas_pdf)
-    return route_counts, state, r
+    return state, r
 
 
 def phase_router_routes(dev, seed: int) -> None:
@@ -596,7 +749,7 @@ def phase_router_routes(dev, seed: int) -> None:
     check("auto (2^18) bank pytree", ("ends_merge_round",),
           lambda gen: rs.systematic_resample((means, covs), wb, gen),
           exact=True)
-    check("systematic_resample_bank (2^18)", ("compact", "search_gather"),
+    check("systematic_resample_bank (2^18)", ("compact", "expand"),
           lambda gen: rs.systematic_resample_bank(means, covs, wb, gen),
           exact=True)
 
@@ -604,16 +757,20 @@ def phase_router_routes(dev, seed: int) -> None:
 def phase_merge_times(dev, card: str, state, r):
     """The merge and coarse kernels against their plain versions at the
     flat main path's inputs: the 2^20 predicted particles and their
-    weights. ``ends_merge_round`` is timed with a fresh carried state per
-    call, as ``systematic_resample_ends`` makes one."""
+    weights. ``ends_merge_round`` updates its carried state in place: each
+    call gets a fresh zeroed state, as ``systematic_resample_ends`` makes
+    one, all made before the timed calls."""
     parts = state.particles.contiguous()
     ends = ends_from_weights(state.weights, r)
     cs = rp3.normalized_cumsum(state.weights)
     payload = parts.T.contiguous()
     o = rc.chunk_boundaries(ends, N)
 
+    def fresh_state():
+        return rpb.block_resample_state(N, 5, dev)
+
     def ends_round(fn):
-        return lambda: fn(ends, parts, 0, *rpb.block_resample_state(N, 5, dev))
+        return lambda *st: fn(ends, parts, 0, *(st or fresh_state()))
 
     pairs = {
         "ends_merge_round": (ends_round(rpb.ends_merge_round),
@@ -623,17 +780,37 @@ def phase_merge_times(dev, card: str, state, r):
         "coarse_gather": (lambda: rc.coarse_gather(ends, o, payload),
                           lambda: rc.coarse_gather_plain(ends, o, payload)),
     }
+    m = int(torch.count_nonzero(torch.diff(ends, prepend=ends.new_full(
+        (1,), -1))))
+    bounds = {
+        # ends and the survivors' 5 columns read; counts and finalized
+        # read and written; the 5 columns of acc written (every slot
+        # finalizes in one round over the whole pool)
+        "ends_merge_round": least_time(4 * N + 20 * m + 16 * N + 20 * N,
+                                       search_ops(N, N)),
+        # the keys are cs / ends (extra_in), the ancestor is computed
+        "cumsum_merge": gather_bound(N, m, 5, search_ops(N, N),
+                                     extra_in=4 * N, compacted=False),
+        "coarse_gather": gather_bound(N, m, 5, search_ops(N, rc.BLOCK),
+                                      extra_in=4 * N + 4 * o.shape[0],
+                                      compacted=False),
+    }
+    setups = {"ends_merge_round": fresh_state}
     errs, times = {}, {}
     for name, (kern, plain) in pairs.items():
         got, want = kern(), plain()
         assert_equal(f"{name} at the main path's inputs", got, want)
         errs[name] = max_abs_err(got, want)
-        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
-                          time_ms(plain))
+        setup = setups.get(name)
+        p1, k1, k2, p2 = (device_ms(plain, setup=setup),
+                          device_ms(kern, setup=setup),
+                          device_ms(kern, setup=setup),
+                          device_ms(plain, setup=setup))
         times[name] = (min(k1, k2), min(p1, p2))
         log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{p1:.4f}/{p2:.4f} ms (median of {REPS}, {card})")
-    return errs, times
+            f"{p1:.4f}/{p2:.4f} ms (device time, mean of {REPS}, {card}); "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    return errs, times, bounds
 
 
 def busy_ms(prof) -> tuple[float, float, int, dict[str, float]]:
@@ -726,6 +903,214 @@ def phase_profile(dev, seed: int, card: str) -> None:
                         f"({ms / busy:.3f})" for name, ms in top))
 
 
+def phase_v2_path(dev, seed: int, card: str):
+    """The flat PF step of ``scripts/bench_v2.py`` through
+    ``fused_systematic_resample_v2`` at 2^20 on the bench rig, in each of
+    its geometries. Returns ``expand``'s error against its plain version
+    at each of the path's block sizes."""
+    x0, state_pdf, meas_pdf = bench_rig(dev)
+    f, g = bio.homeostatic_des, bio.static_outputs
+    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
+    z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
+    dt = torch.tensor(0.1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    state = pf.init(gen, N, x0)
+    uniform = torch.full((N,), 1.0 / N, device=dev)
+
+    def predict_update(s):
+        return pf.update(pf.predict(s, u, dt, f, state_pdf), u, z, g,
+                         meas_pdf)
+
+    def step(s, window, block):
+        s = predict_update(s)
+        r = torch.rand((), generator=gen, device=dev)
+        parts = rp2.fused_systematic_resample_v2(s.particles, s.weights, r,
+                                                 window=window, block=block)
+        return pf.PFState(parts, uniform, gen)
+
+    for window, block in V2_GEOMETRIES:
+        zero_counts()
+        state = step(state, window, block)            # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ROUTE_STEPS):
+            state = step(state, window, block)
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect_counts(f"v2 path W={window} B={block}", counts,
+                      {"compact": ROUTE_STEPS + 1, "expand": ROUTE_STEPS + 1})
+        est = pf.point_estimate(state)
+        if not (torch.isfinite(state.particles).all()
+                and torch.isfinite(est).all()):
+            raise AssertionError(f"v2 path W={window} B={block}: non-finite")
+        if state.particles.shape != (N, 5):
+            raise AssertionError(f"v2 path: particles "
+                                 f"{tuple(state.particles.shape)}")
+        log(f"v2 path W={window} B={block}: {ROUTE_STEPS} chained steps at "
+            f"n={N}: {start.elapsed_time(end) / ROUTE_STEPS:.4f} ms/step "
+            f"(CUDA events, {card}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }; point estimate "
+            f"{[round(v, 5) for v in est.tolist()]}")
+
+    # one step against the plain route: the same r, the same ends
+    upd = predict_update(state)
+    r = torch.rand((), generator=gen, device=dev)
+    ends = ends_from_weights(upd.weights, r)
+    payload = upd.particles.T.contiguous()
+    c_plain = rp4.compact_plain(ends, payload)
+    want = rp2.expand_plain(*c_plain[:3])[0].T
+    for window, block in V2_GEOMETRIES:
+        got = rp2.fused_systematic_resample_v2(upd.particles, upd.weights, r,
+                                               window=window, block=block)
+        if not torch.equal(got, want):
+            raise AssertionError(f"v2 step W={window} B={block} != the "
+                                 f"plain route")
+    log(f"v2 step == plain route (bit-equal) in all "
+        f"{len(V2_GEOMETRIES)} geometries")
+
+    c_keys, c_payload, c_idx, count = rp4.compact(ends, payload)
+    m = int(count.item())
+    err = 0.0
+    for block in sorted({b for _, b in V2_GEOMETRIES}):
+        got = rp2.expand(c_keys, c_payload, c_idx, block)
+        want = rp2.expand_plain(c_keys, c_payload, c_idx, block)
+        assert_equal(f"expand B={block} at the v2 path's inputs", got, want)
+        err = max(err, max_abs_err(got, want))
+
+        def kern(b=block):
+            return rp2.expand(c_keys, c_payload, c_idx, b)
+
+        def plain(b=block):
+            return rp2.expand_plain(c_keys, c_payload, c_idx, b)
+
+        p1, k1, k2, p2 = (device_ms(plain), device_ms(kern), device_ms(kern),
+                          device_ms(plain))
+        log(f"time expand B={block}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+            f"{p1:.4f}/{p2:.4f} ms (device time, mean of {REPS}, {card}); "
+            f"bound {expand_bound(N, m, 5, block)[0]:.4f} ms ({m} "
+            f"survivors of {N})")
+    return err
+
+
+def phase_gsukf(dev, seed: int, card: str):
+    """``GaussianSumUnscentedKalmanFilter`` at 2^18 Gaussians on the bench
+    rig (``scripts/gsf_bench.py``): chained steps through the entry point
+    a user calls, then one step against the plain resample, stage times
+    and a profile. Returns the metric."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x0, state_pdf, meas_pdf = bench_rig(dev)
+    f, g = bio.homeostatic_des, bio.static_outputs
+    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
+    z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
+    dt = torch.tensor(0.1, device=dev)
+    filt = gsf.GaussianSumUnscentedKalmanFilter(f, g, N_BANK, x0, state_pdf,
+                                                meas_pdf, seed=seed)
+    if filt.means.device != dev:
+        raise AssertionError(f"GSUKF bank on {filt.means.device}")
+    zero_counts()
+    filt.step(u, z, dt)                               # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(GSUKF_STEPS):
+        filt.step(u, z, dt)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("GSUKF path", counts, {"compact": GSUKF_STEPS + 1,
+                                         "expand": GSUKF_STEPS + 1})
+    if not torch.equal(filt.covariances, filt.covariances.mT):
+        raise AssertionError("GSUKF path: covariances not exactly symmetric")
+    est, cov = filt.moments()
+    if not (torch.isfinite(filt.means).all()
+            and torch.isfinite(filt.covariances).all()
+            and torch.isfinite(est).all() and torch.isfinite(cov)):
+        raise AssertionError("GSUKF path: non-finite bank or moments")
+    if filt.covariances.shape != (N_BANK, 5, 5):
+        raise AssertionError(f"GSUKF covariances "
+                             f"{tuple(filt.covariances.shape)}")
+    ms_per_step = start.elapsed_time(end) / GSUKF_STEPS
+    log(f"GSUKF path: {GSUKF_STEPS} chained steps at N={N_BANK}: "
+        f"{ms_per_step:.4f} ms/step (CUDA events, {card}), host wall "
+        f"{wall_s / GSUKF_STEPS * 1e3:.4f} ms/step; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; covariances exactly "
+        f"symmetric; point estimate {[round(v, 5) for v in est.tolist()]}, "
+        f"covariance {float(cov):.6g}")
+
+    # one step through the kernels vs the plain resample: same noise, r
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    st = filt.state
+    s_sig = 11
+    noise = state_pdf.draw_t(gen, N_BANK * s_sig).reshape(
+        5, s_sig, N_BANK).transpose(0, 1)
+    r = torch.rand((), generator=gen, device=dev)
+
+    def one_step():
+        return gsf.step_from_noise(st.means, st.covariances, st.weights, u,
+                                   z, dt, f, g, meas_pdf, noise, r,
+                                   noise_is_lanes=True)[0]
+
+    got = one_step()
+    with rs.impl("xla"):
+        want = one_step()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("GSUKF kernel step != plain-resample step")
+    if not torch.equal(got[1], got[1].mT):
+        raise AssertionError("GSUKF step: covariances not symmetric")
+    log("GSUKF path: kernel step == plain-resample step (bit-equal), "
+        "covariances exactly symmetric")
+
+    pm, pc = gsf.predict_core(st.means, st.covariances, u, dt, noise, f,
+                              noise_is_lanes=True)
+    um, uc, uw = gsf.update_core(pm, pc, st.weights, u, z, g, meas_pdf)
+    upd = gsf.GSUKFState(um, uc, uw, gen)
+    stages = {
+        "noise draw": lambda: state_pdf.draw_t(gen, N_BANK * s_sig),
+        "predict": lambda: gsf.predict_core(st.means, st.covariances, u, dt,
+                                            noise, f, noise_is_lanes=True),
+        "update": lambda: gsf.update_core(pm, pc, st.weights, u, z, g,
+                                          meas_pdf),
+        "resample": lambda: rs.systematic_resample_bank_from_r(um, uc, uw,
+                                                               r),
+        "moments": lambda: (gsf.point_estimate(upd),
+                            gsf.point_covariance(upd)),
+    }
+    for name, fn in stages.items():
+        log(f"GSUKF stage {name}: {time_ms(fn):.4f} ms (median of {REPS}, "
+            f"synchronised, {card})")
+    filt.step(u, z, dt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ROUTE_STEPS):
+            filt.step(u, z, dt)
+        torch.cuda.synchronize()
+    busy, span, ops, per_name = busy_ms(prof)
+    if ops:
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+        log(f"GSUKF profile: {ops / ROUTE_STEPS:.1f} device ops/step, busy "
+            f"{busy / ROUTE_STEPS:.4f} of span {span / ROUTE_STEPS:.4f} "
+            f"ms/step (busy share {busy / span:.3f}; {card}); top: "
+            + "; ".join(f"{name[:60]} {ms / ROUTE_STEPS:.4f} ms/step "
+                        f"({ms / busy:.3f})" for name, ms in top))
+    else:
+        log("GSUKF profile: the profiler saw no device time")
+    metric = {
+        "metric": "gsukf_full_step_throughput_2^18_gaussians",
+        "value": 1e3 / ms_per_step, "unit": "steps/s",
+        "ms_per_step": ms_per_step, "steps": GSUKF_STEPS, "seed": seed,
+        "card": card,
+    }
+    return metric
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -735,26 +1120,34 @@ def main() -> int:
     errs = phase_kernels_vs_plain(dev, args.seed)
     errs.update(phase_merge_kernels_vs_plain(dev, args.seed))
     phase_fixture(dev)
-    launches, main_errs, times, metric = phase_main_path(dev, args.seed, card)
-    route_counts, state, r = phase_flat_pf(dev, args.seed, card)
+    phase_fixture_gsukf(dev)
+    main_errs, times, metric, bounds = phase_main_path(dev, args.seed, card)
+    state, r = phase_flat_pf(dev, args.seed, card)
     phase_router_routes(dev, args.seed)
-    merge_errs, merge_times = phase_merge_times(dev, card, state, r)
+    merge_errs, merge_times, merge_bounds = phase_merge_times(dev, card,
+                                                              state, r)
     phase_profile(dev, args.seed, card)
+    v2_err = phase_v2_path(dev, args.seed, card)
+    errs["expand"] = max(errs["expand"], v2_err)
+    gsukf_metric = phase_gsukf(dev, args.seed, card)
     times.update(merge_times)
-    launches["ends_merge_round"] = route_counts["ends"]["ends_merge_round"]
-    launches["cumsum_merge"] = (route_counts["v3"]["cumsum_merge"]
-                                + route_counts["pallas"]["cumsum_merge"])
-    launches["coarse_gather"] = route_counts["coarse"]["coarse_gather"]
+    bounds.update(merge_bounds)
+    # no single PyTorch call computes any of these functions (each is a
+    # sorted search, a compaction or a merge, and a gather): library_ms
+    # stays null
     kernels = [{
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches[name],
+        "replaces": replaces, "launches": TALLY[name],
         "max_abs_err": max(errs[name], main_errs.get(name, 0.0),
                            merge_errs.get(name, 0.0)),
         "ms": times[name][0], "plain_ms": times[name][1],
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": None,
     } for name, (source, replaces, _) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps(metric))
+    print(json.dumps(gsukf_metric))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,9 @@ counterpart is easy to find:
 * ``distributions/gaussian_sum.py``: the Gaussian-mixture noise and
   measurement pdf;
 * ``ops/resample_coarse.py``: the monotonized integer ``ends``;
-* ``ops/resample_pallas4.py``: the two hand-written CUDA resample kernels
-  (``csrc/resample.cu``), their plain PyTorch versions and the entry
-  points;
+* ``ops/resample_pallas4.py``: the compaction and search + gather CUDA
+  kernels (``csrc/resample.cu``, ``csrc/resample_expand.cu``), their
+  plain PyTorch versions and the entry points;
 * ``filters/resampling.py``: plain systematic resampling, the kernels'
   oracles;
 * ``filters/particle_tiled.py``: the fused predict + update + resample

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
+from gpu_se_tpu_torch.filters.gs_ukf import GSUKFState
 from gpu_se_tpu_torch.filters.particle import PFState
 from gpu_se_tpu_torch.filters.particle_tiled import (
     TiledPFState,
@@ -17,7 +18,7 @@ from gpu_se_tpu_torch.filters.particle_tiled import (
 
 
 def gaussian_sum_from_numpy(means, covariances, weights, chol, inv_cov,
-                            log_const, device="cpu") -> GaussianSum:
+                            log_const, device="cuda") -> GaussianSum:
     """A :class:`GaussianSum` holding exactly the given float32 fields,
     so both sides use identical factors."""
     def dev(a):
@@ -44,3 +45,15 @@ def pf_state_from_numpy(particles, weights,
         return torch.tensor(np.asarray(a), device=generator.device)
 
     return PFState(dev(particles), dev(weights), generator)
+
+
+def gsukf_state_from_numpy(means, covariances, weights,
+                           generator: torch.Generator) -> GSUKFState:
+    """The reference's ``GSUKFState`` fields (``means (N, nx)``,
+    ``covariances (N, nx, nx)``, ``weights (N,)``) as a
+    :class:`GSUKFState` on the generator's device, drawing from
+    ``generator``."""
+    def dev(a):
+        return torch.tensor(np.asarray(a), device=generator.device)
+
+    return GSUKFState(dev(means), dev(covariances), dev(weights), generator)

@@ -1,5 +1,5 @@
-// Binary search shared by the resample kernels (resample.cu,
-// resample_block.cu, resample_coarse.cu, resample_merge.cu).
+// Binary search shared by the resample kernels (resample_block.cu,
+// resample_coarse.cu, resample_expand.cu, resample_merge.cu).
 #pragma once
 
 namespace gst {

@@ -1,20 +1,19 @@
-// Systematic-resample kernels for Hopper (sm_90a): search+gather and
-// survivor compaction over the monotonized integer `ends`.
+// Survivor compaction for Hopper (sm_90a) over the monotonized integer
+// `ends`: the first half of the port's systematic resample. The second
+// half, the ancestor search and gather over the compacted survivors, is
+// `expand` (resample_expand.cu).
 //
-// Both kernels replace the two Pallas TPU kernels of
-// gpu_se_tpu/ops/resample_pallas4.py on the tiled particle-filter path.
-// The TPU versions are shaped by a bounded VMEM window (the 3*tpb+8 tile
+// The TPU version is shaped by a bounded VMEM window (the 3*tpb+8 tile
 // window with its span-overflow telemetry row, one-hot MXU slab gathers,
 // a staging ring with flushes). A GPU reads device memory directly from
 // every thread, so none of that machinery carries over: the design
-// follows what the kernels compute, not how the TPU blocks it.
+// follows what the kernel computes, not how the TPU blocks it.
 //
-// Conventions shared with the Python wrappers (ops/resample_pallas4.py):
-// * `ends` / `keys` are int32 and non-decreasing; the ancestor of output
-//   slot i is the first j with keys[j] >= i.
-// * payloads are row-major (rows, L) float32 (structure of arrays), any
-//   number of rows.
-// * every function launches on the given stream, allocates nothing and
+// Conventions shared with the Python wrapper (ops/resample_pallas4.py):
+// * `ends` is int32 and non-decreasing;
+// * payloads are row-major (rows, n) float32 (structure of arrays), any
+//   number of rows;
+// * gst_compact launches on the given stream, allocates nothing and
 //   returns cudaGetLastError() of its launches (0 on success).
 
 #include <cuda_runtime.h>
@@ -22,54 +21,14 @@
 #include <climits>
 #include <cstddef>
 
-#include "lower_bound.cuh"
-
 namespace {
-
-// ---------------------------------------------------------------------
-// K1 search_gather
-//
-// Replaces resample_pallas4._kernel (gpu_se_tpu/ops/resample_pallas4.py:76).
-// For each output slot i: j = lower_bound(keys, i), anc[i] = src_idx[j]
-// (or j), out[:, i] = payload[:, j].
-//
-// Bound: at n = 2^20 and 5 payload rows it moves ~24 MB in and ~24 MB
-// out, ~15 us of DRAM time at 3.35 TB/s. This first version is one
-// thread per slot doing a global binary search, ~log2(L) dependent loads
-// per slot; the keys array (4 MB at 2^20) fits in the 50 MB L2, so the
-// searches should wait on L2 latency rather than on DRAM. The reads and
-// writes of the gather are coalesced because ancestors are sorted:
-// neighbouring slots read neighbouring (often equal) columns. A
-// block-cooperative bracket with a shared-memory search is later work.
-//
-// The TPU kernel's window can overflow, which is why its caller runs a
-// span check and may re-run it on compacted input; a global search has
-// no window, so it is exact on any non-decreasing keys.
-// ---------------------------------------------------------------------
-__global__ void search_gather_kernel(const int* __restrict__ keys, int L,
-                                     const float* __restrict__ payload,
-                                     int rows,
-                                     const int* __restrict__ src_idx, int n,
-                                     float* __restrict__ out,
-                                     int* __restrict__ anc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int lo = gst::lower_bound(keys, L, i);
-  // keys[L-1] >= n-1 on every path of the filter; the clamp keeps a
-  // malformed input (NaN weights) in bounds, as the plain version does
-  const int j = lo < L ? lo : L - 1;
-  anc[i] = src_idx != nullptr ? __ldg(src_idx + j) : j;
-  for (int r = 0; r < rows; ++r) {
-    out[static_cast<size_t>(r) * n + i] =
-        __ldg(payload + static_cast<size_t>(r) * L + j);
-  }
-}
 
 // ---------------------------------------------------------------------
 // K2 compact
 //
 // Replaces resample_pallas4._compact_kernel
-// (gpu_se_tpu/ops/resample_pallas4.py:266). Keeps entry k where
+// (gpu_se_tpu/ops/resample_pallas4.py:266) and resample_pallas2's
+// (gpu_se_tpu/ops/resample_pallas2.py:69). Keeps entry k where
 // ends[k] > ends[k-1] (ends[-1] = -1): exactly the particles that parent
 // at least one slot. Output is a stable partition of the n entries:
 // survivors first (keys, original index, payload columns), then a pad
@@ -81,9 +40,9 @@ __global__ void search_gather_kernel(const int* __restrict__ keys, int L,
 // three-pass scan written here: per-block survivor counts (warp ballot
 // and popcount), one block's exclusive scan of those counts (which also
 // yields the total), then a scatter that recomputes the keep flags and
-// ranks them inside the block. Bound: memory, ~(4 + 4 rows) bytes read
-// and (8 + 4 rows) bytes written per entry plus one extra read of
-// `ends` in the counting pass.
+// ranks them inside the block. Bound: memory, 4 bytes of `ends` per
+// entry and 4 rows bytes per survivor read, (8 + 4 rows) bytes written
+// per entry, plus one extra read of `ends` in the counting pass.
 // ---------------------------------------------------------------------
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -208,18 +167,6 @@ __global__ void compact_scatter_kernel(const int* __restrict__ ends,
 }  // namespace
 
 extern "C" {
-
-int gst_search_gather(const int* keys, int L, const float* payload, int rows,
-                      const int* src_idx, int n, float* out, int* anc,
-                      void* stream) {
-  if (n > 0) {
-    const int threads = 256;
-    search_gather_kernel<<<(n + threads - 1) / threads, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        keys, L, payload, rows, src_idx, n, out, anc);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // number of int32 entries of scratch gst_compact needs for each of its
 // block_counts and block_offsets arrays

@@ -5,7 +5,8 @@ host float64 precompute of the Cholesky factors, inverse covariances
 and normalization constants, cast to float32 on the target device; the
 row-major ``pdf`` / ``logpdf`` / ``draw`` of the flat particle filter and
 the lanes-last ``pdf_t`` / ``draw_t`` of the tiled one; and the stateful
-:class:`MultivariateGaussianSum` shell.
+:class:`MultivariateGaussianSum` shell, and its replay-deterministic
+:class:`DeterministicGaussianSum`.
 
 Random numbers come from an explicit ``torch.Generator``: Philox on a
 CUDA generator, the Mersenne twister on a CPU one. Neither reproduces
@@ -53,10 +54,12 @@ class GaussianSum:
     log_const: torch.Tensor
 
     @classmethod
-    def create(cls, means, covariances, weights, device="cpu",
+    def create(cls, means, covariances, weights, device="cuda",
                dtype=torch.float32) -> "GaussianSum":
         """Build a mixture, precomputing its factors in float64 on the
-        host and casting them to ``dtype`` on ``device``."""
+        host and casting them to ``dtype`` on ``device``: the card unless
+        the caller passes ``device="cpu"``. Without CUDA the default
+        raises, as torch does."""
         means64 = np.atleast_2d(np.asarray(means, dtype=np.float64))
         covs64 = np.asarray(covariances, dtype=np.float64)
         if covs64.ndim == 2:
@@ -219,12 +222,13 @@ class MultivariateGaussianSum:
     """Stateful shell with the reference's constructor and method surface.
 
     ``library=`` is accepted and ignored. Each :meth:`draw` advances a
-    ``torch.Generator`` on ``device`` seeded from ``seed`` (the reference
-    splits a PRNG key); the two streams differ.
+    ``torch.Generator`` on ``device`` (the card unless the caller passes
+    ``device="cpu"``) seeded from ``seed`` (the reference splits a PRNG
+    key); the two streams differ.
     """
 
     def __init__(self, means, covariances, weights, library=None,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device="cuda"):
         del library
         self.dist = GaussianSum.create(means, covariances, weights,
                                        device=device)
@@ -249,3 +253,43 @@ class MultivariateGaussianSum:
 
     def draw(self, shape=(1,)):
         return self.dist.draw(self.generator, shape)
+
+
+class DeterministicGaussianSum(MultivariateGaussianSum):
+    """Replay-deterministic variant for CPU-versus-card parity runs.
+
+    All instances share one lazily extended stream of float32 values, and
+    ``draw(shape)`` returns the *first* ``prod(shape) * Nx`` of them,
+    squeezed, on the instance's device: two instances (one driving a CPU
+    filter, one a card filter) see identical noise. The reference's
+    semantics; its stream is threefry from ``PRNGKey(1234)``, this one
+    a CPU ``torch.Generator`` seeded 1234, whose draws extend it in
+    :meth:`GaussianSum.draw` samples of the instance that first needs
+    more values. The streams differ: a test that copies the reference's
+    ``_values`` into this class gets the reference's draws.
+    """
+
+    _values = np.array([], dtype=np.float32)
+    # created at the first draw, so importing the package draws nothing
+    _stream = None
+    SEED = 1234
+
+    @classmethod
+    def reset(cls):
+        cls._values = np.array([], dtype=np.float32)
+        cls._stream = None
+
+    def draw(self, shape=(1,)):
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        size = math.prod(shape) * self._Nx
+        cls = DeterministicGaussianSum
+        if cls._values.size < size:
+            if cls._stream is None:
+                cls._stream = torch.Generator().manual_seed(cls.SEED)
+            need = size - cls._values.size
+            n_draw = -(-need // self._Nx)
+            drawn = self.dist.to("cpu").draw(cls._stream, (n_draw,))
+            cls._values = np.hstack(
+                [cls._values, drawn.numpy().ravel()[:need]])
+        out = cls._values[:size].reshape(shape + (self._Nx,))
+        return torch.from_numpy(np.squeeze(out)).to(self.means.device)

@@ -15,8 +15,8 @@ are the reference's, so the same shapes reach the same counterparts:
 * ``"ends"``, and auto for multi-leaf trees whose leaves are all
   float32-exact and pack to <= 32 columns: the integer-``ends`` merge
   (``ops/resample_pallas_block``, kernel ``ends_merge_round``);
-* ``"v4"``, and auto for a float32-exact ``(n, <=5)`` first leaf: compact
-  + search/gather (``ops/resample_pallas4``);
+* ``"v4"``, and auto for a float32-exact ``(n, <=5)`` first leaf: the
+  kernels ``compact`` and ``expand`` (``ops/resample_pallas4``);
 * ``"v3"`` (and auto for other ``(n, <=8)`` first leaves) and ``"pallas"``
   (v1): the cumsum merge (``ops/resample_pallas3``, kernel
   ``cumsum_merge``); the remaining leaves reuse its ancestors;
@@ -50,7 +50,7 @@ from gpu_se_tpu_torch.ops.resample_pallas_block import (
 from gpu_se_tpu_torch.pytree import tree_flatten, tree_map, tree_unflatten
 
 
-def systematic_positions(n: int, r, device="cpu") -> torch.Tensor:
+def systematic_positions(n: int, r, device="cuda") -> torch.Tensor:
     """Stratified positions ``u_i = (i + r) / n`` for a single uniform r."""
     i = torch.arange(n, dtype=torch.float32, device=device)
     return (i + r) / n
@@ -178,7 +178,7 @@ def systematic_resample_bank(means: torch.Tensor, covs: torch.Tensor,
     """Systematic resample of a Gaussian bank ``(means (n, nx), covs
     (n, nx, nx))``; ``covs`` must be exactly symmetric. Auto on CUDA
     tensors, ``"v4"`` on them and ``"bank"`` on any take the packed
-    upper-triangle route (compact + search/gather at ``nx + nx(nx+1)/2``
+    upper-triangle route (``compact`` + ``expand`` at ``nx + nx(nx+1)/2``
     rows); anything else the generic tree route. Returns ``((means,
     covs), uniform_weights)``."""
     return systematic_resample_bank_from_r(means, covs, weights,

@@ -36,8 +36,6 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # keys, L, payload, rows, src_idx, n, out, anc, stream
-    "gst_search_gather": [_P, _I, _P, _I, _P, _I, _P, _P, _P],
     "gst_compact_blocks": [_I],
     # ends, payload, rows, n, block_counts, block_offsets,
     # c_keys, c_payload, c_idx, count, stream
@@ -49,6 +47,8 @@ _SIGNATURES = {
     "gst_cumsum_merge": [_P, _P, _I, _P, _I, _P, _P, _P],
     # ends, o, payload, rows, n, out, anc, stream
     "gst_coarse_gather": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # keys, L, payload, rows, src_idx, n, block, out, anc, stream
+    "gst_expand": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
 }
 
 

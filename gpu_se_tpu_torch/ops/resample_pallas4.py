@@ -1,14 +1,21 @@
 """Systematic resample through two hand-written CUDA kernels.
 
-Counterpart of ``gpu_se_tpu/ops/resample_pallas4.py``. The kernels live
-in ``csrc/resample.cu``:
+Counterpart of ``gpu_se_tpu/ops/resample_pallas4.py``:
 
-* :func:`search_gather` (K1, replaces ``_kernel``): the ancestor of each
-  output slot ``i`` is the first ``j`` with ``keys[j] >= i``; gathers
-  that column of the payload and, optionally, its original index;
-* :func:`compact` (K2, replaces ``_compact_kernel``): keeps the entries
-  with ``ends_k > ends_{k-1}`` (exactly the possible ancestors) in order,
-  then pads with ``INT32_MAX`` keys.
+* :func:`expand` (K1, ``csrc/resample_expand.cu``, replaces ``_kernel``
+  and ``resample_pallas2._expand_kernel``): the ancestor of each output
+  slot ``i`` is the first ``j`` with ``keys[j] >= i``; gathers that
+  column of the payload and, optionally, its original index. One CUDA
+  block per chunk of output slots searches the chunk's survivor window
+  in shared memory;
+* :func:`compact` (K2, ``csrc/resample.cu``, replaces ``_compact_kernel``
+  and ``resample_pallas2._compact_kernel``): keeps the entries with
+  ``ends_k > ends_{k-1}`` (exactly the possible ancestors) in order, then
+  pads with ``INT32_MAX`` keys.
+
+Every route that gathers from compacted keys (the tiled step, the flat
+filter's auto route, the Gaussian bank and the v2 entry) takes the same
+two kernels.
 
 The payload is structure-of-arrays ``(rows, n)`` float32 of any height,
 and the ancestors and ``ends`` stay int32 (the reference carries them in
@@ -22,10 +29,10 @@ counts kernel launches.
 Route. :func:`resample_core` always compacts and then searches the
 compacted keys. The reference chooses between a direct and a compacted
 route (``resample_tiled_core``'s two ``lax.cond``) only because its
-bounded TPU window can overflow on heavy-tailed weights; the global
-search has no window, so both routes are exact everywhere and the port
-needs no such switch. :func:`search_gather` on the uncompacted ``ends``
-is the direct route.
+bounded TPU window can overflow on heavy-tailed weights; :func:`expand`
+goes on searching in device memory past its window, so both routes are
+exact everywhere and the port needs no such switch. :func:`expand` on
+the uncompacted ``ends`` is the direct route.
 """
 from __future__ import annotations
 
@@ -41,10 +48,16 @@ INT32_MAX = 2**31 - 1
 
 
 # ----------------------------------------------------------------------
-# K1 search_gather
+# K1 expand
 # ----------------------------------------------------------------------
-def search_gather_plain(keys, payload, src_idx=None):
-    """Plain version of :func:`search_gather`."""
+EXPAND_BLOCK = 1024  # output slots per chunk (one CUDA block each)
+
+
+def expand_plain(keys, payload, src_idx=None, block: int = EXPAND_BLOCK):
+    """Plain version of :func:`expand`: one sorted search of every slot
+    in ``keys`` and an index gather (``block`` shapes only the kernel's
+    work)."""
+    del block
     j = indices_from_ends(keys).clamp_max_(keys.shape[0] - 1)
     out = torch.index_select(payload, 1, j)
     if src_idx is None:
@@ -52,15 +65,17 @@ def search_gather_plain(keys, payload, src_idx=None):
     return out, torch.index_select(src_idx, 0, j)
 
 
-def search_gather(keys: torch.Tensor, payload: torch.Tensor,
-                  src_idx: torch.Tensor | None = None):
+def expand(keys: torch.Tensor, payload: torch.Tensor,
+           src_idx: torch.Tensor | None = None, block: int = EXPAND_BLOCK):
     """Ancestor search and payload gather over ``n = len(keys)`` slots.
 
-    ``keys`` int32 ``(n,)`` non-decreasing with ``keys[-1] >= n - 1``;
-    ``payload`` float32 ``(rows, n)``; ``src_idx`` optional int32 ``(n,)``.
+    ``keys`` int32 ``(n,)`` non-decreasing (on the filter's paths the
+    strictly increasing survivor keys and ``INT32_MAX`` tail that
+    :func:`compact` gives); ``payload`` float32 ``(rows, n)``; ``src_idx``
+    optional int32 ``(n,)``; ``block >= 1`` output slots per chunk.
     Returns ``out (rows, n)`` with ``out[:, i] = payload[:, j_i]`` and
-    ``anc (n,)`` int32 with ``anc[i] = src_idx[j_i]`` (or ``j_i``), where
-    ``j_i`` is the first ``j`` with ``keys[j] >= i``.
+    ``anc (n,)`` int32, ``src_idx[j_i]`` (or ``j_i``), where ``j_i =
+    min(first j with keys[j] >= i, n - 1)``.
     """
     dev = keys.device
     _build.check("keys", keys, torch.int32, 1, dev)
@@ -72,24 +87,25 @@ def search_gather(keys: torch.Tensor, payload: torch.Tensor,
         _build.check("src_idx", src_idx, torch.int32, 1, dev)
         if src_idx.shape[0] != n:
             raise ValueError(f"src_idx {tuple(src_idx.shape)} vs keys ({n},)")
+    if int(block) < 1:
+        raise ValueError(f"block {block} must be >= 1")
     if not _build.on_cuda(keys):
-        return search_gather_plain(keys, payload, src_idx)
+        return expand_plain(keys, payload, src_idx, block)
     lib = _build.load_library()
     rows = payload.shape[0]
     out = torch.empty((rows, n), dtype=torch.float32, device=dev)
     anc = torch.empty((n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.gst_search_gather(
+        rc = lib.gst_expand(
             keys.data_ptr(), n, payload.data_ptr(), rows,
-            None if src_idx is None else src_idx.data_ptr(), n,
-            out.data_ptr(), anc.data_ptr(),
-            _build.stream(dev))
-    _build.launch_check("search_gather", rc)
-    search_gather.launches += 1
+            None if src_idx is None else src_idx.data_ptr(), n, int(block),
+            out.data_ptr(), anc.data_ptr(), _build.stream(dev))
+    _build.launch_check("expand", rc)
+    expand.launches += 1
     return out, anc
 
 
-search_gather.launches = 0
+expand.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -156,16 +172,16 @@ compact.launches = 0
 # ----------------------------------------------------------------------
 def resample_core(x: torch.Tensor, ends: torch.Tensor):
     """Resample the ``(rows, n)`` payload ``x`` by the monotonized ``ends``:
-    :func:`compact`, then :func:`search_gather` on the survivors.
+    :func:`compact`, then :func:`expand` on the survivors.
     Returns ``(x[:, anc], anc)``."""
     c_keys, c_payload, c_idx, _ = compact(ends, x)
-    return search_gather(c_keys, c_payload, c_idx)
+    return expand(c_keys, c_payload, c_idx)
 
 
 def resample_core_plain(x: torch.Tensor, ends: torch.Tensor):
     """:func:`resample_core` through both plain versions."""
     c_keys, c_payload, c_idx, _ = compact_plain(ends, x)
-    return search_gather_plain(c_keys, c_payload, c_idx)
+    return expand_plain(c_keys, c_payload, c_idx)
 
 
 def systematic_resample_tiled(particles: torch.Tensor, weights: torch.Tensor,
@@ -230,7 +246,7 @@ def bank_applicable(means, covs, n: int, block: int = V4_BLOCK) -> bool:
 def systematic_resample_bank(means: torch.Tensor, covs: torch.Tensor,
                              weights: torch.Tensor, r):
     """Systematic resample of a Gaussian bank through :func:`compact` and
-    :func:`search_gather` on one ``(nx + nx(nx+1)/2, n)`` payload: the
+    :func:`expand` on one ``(nx + nx(nx+1)/2, n)`` payload: the
     means and the upper triangle of each covariance, mirrored back after.
 
     ``covs`` must be exactly symmetric; then the result is bit-equal to

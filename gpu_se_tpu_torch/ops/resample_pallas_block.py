@@ -44,7 +44,7 @@ def _cols_pad(nx: int) -> int:
     return ((nx + 7) // 8) * 8
 
 
-def block_resample_state(n_local: int, nx: int = 8, device="cpu"):
+def block_resample_state(n_local: int, nx: int = 8, device="cuda"):
     """Fresh carried state ``(counts, acc, finalized)`` for a round."""
     return (
         torch.zeros((n_local, 1), dtype=torch.int32, device=device),

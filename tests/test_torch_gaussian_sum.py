@@ -47,7 +47,7 @@ MIXTURES = {
 
 def _pair(name):
     args = MIXTURES[name]
-    return JGS.create(*args), TGS.create(*args)
+    return JGS.create(*args), TGS.create(*args, device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(MIXTURES))
@@ -91,7 +91,7 @@ def test_draw_t_from_vs_jax_draw_t(name):
     kc. Fed those numbers, the port draws the same samples."""
     jgs, _ = _pair(name)
     tgs = convert.gaussian_sum_from_numpy(
-        *(np.asarray(getattr(jgs, f)) for f in FIELDS))
+        *(np.asarray(getattr(jgs, f)) for f in FIELDS), device="cpu")
     size = 4096
     key = jax.random.PRNGKey(5)
     want = np.asarray(jgs.draw_t(key, size))
@@ -111,7 +111,7 @@ def test_draw_t_distribution(name):
     """The port's own stream: the mean and covariance of 2^16 draws match
     the mixture's within sampling error (4 standard errors)."""
     args = MIXTURES[name]
-    tgs = TGS.create(*args)
+    tgs = TGS.create(*args, device="cpu")
     size = 2**16
     draws = tgs.draw_t(torch.Generator().manual_seed(0), size).numpy()
     assert draws.shape == (tgs.n_dim, size)
@@ -156,7 +156,7 @@ def test_draw_from_vs_jax_draw(name):
     draws the same samples (the ``chol @ eps`` sums in another order)."""
     jgs, _ = _pair(name)
     tgs = convert.gaussian_sum_from_numpy(
-        *(np.asarray(getattr(jgs, f)) for f in FIELDS))
+        *(np.asarray(getattr(jgs, f)) for f in FIELDS), device="cpu")
     size = 4096
     key = jax.random.PRNGKey(6)
     want = np.asarray(jgs.draw(key, (size,)))
@@ -189,7 +189,7 @@ def _component_stats_ok(tgs, comp, draws, size):
 @pytest.mark.parametrize("name", ["x0", "measurement", "three_component"])
 def test_draw_distribution(name):
     """The port's own ``draw`` at 2^16: by component."""
-    tgs = TGS.create(*MIXTURES[name])
+    tgs = TGS.create(*MIXTURES[name], device="cpu")
     size = 2**16
     eps, comp = tgs.draw_inputs(torch.Generator().manual_seed(1), size)
     draws = tgs.draw_from(eps, comp).double().numpy()
@@ -202,13 +202,34 @@ def test_draw_distribution(name):
 
 def test_multivariate_gaussian_sum_shell():
     means, covs, w = MIXTURES["measurement"]
-    shell = MultivariateGaussianSum(means, covs, w, library="numpy", seed=3)
+    shell = MultivariateGaussianSum(means, covs, w, library="numpy", seed=3,
+                                    device="cpu")
     assert (shell._Nd, shell._Nx) == (2, 2)
     assert shell.means is shell.dist.means
     first, second = shell.draw((8,)), shell.draw((8,))
     assert first.shape == (8, 2) and not torch.equal(first, second)
-    again = MultivariateGaussianSum(means, covs, w, seed=3).draw((8,))
+    again = MultivariateGaussianSum(means, covs, w, seed=3,
+                                    device="cpu").draw((8,))
     assert torch.equal(first, again)
     x = torch.zeros((4, 2))
     assert torch.equal(shell.pdf(x), shell.dist.pdf(x))
     assert torch.equal(shell.logpdf(x), shell.dist.logpdf(x))
+
+
+@pytest.mark.parametrize("build", ["create", "shell"])
+def test_entry_points_default_to_the_card(build):
+    """Without ``device=`` a mixture lands on the card: on a machine
+    without CUDA the call raises, as torch does, and never returns CPU
+    tensors."""
+    args = MIXTURES["measurement"]
+
+    def make():
+        if build == "create":
+            return TGS.create(*args).means
+        return MultivariateGaussianSum(*args).means
+
+    if torch.cuda.is_available():
+        assert make().is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            make()

@@ -20,7 +20,8 @@ def test_imports_with_jax_blocked():
     mods = list(_modules())
     for name in ("ops.resample_pallas4", "ops.resample_pallas_block",
                  "ops.resample_pallas3", "ops.resample_pallas", "ops.reduce",
-                 "filters.particle", "filters.resampling", "pytree"):
+                 "ops.resample_pallas2", "ops.smallmat", "filters.gs_ukf",
+                 "filters.particle", "filters.resampling", "pytree", "rig"):
         assert f"gpu_se_tpu_torch.{name}" in mods
     code = (
         "import sys\n"

@@ -18,27 +18,33 @@ import numpy as np
 import pytest
 import torch
 
-from gpu_se_tpu_torch import convert
+from gpu_se_tpu_torch import convert, rig
 from gpu_se_tpu_torch.distributions import GaussianSum
+from gpu_se_tpu_torch.filters import gs_ukf as gsf
 from gpu_se_tpu_torch.filters import particle as pf
 from gpu_se_tpu_torch.filters import particle_tiled as pft
 from gpu_se_tpu_torch.filters import resampling as rs
 from gpu_se_tpu_torch.models import bioreactor as bio
 from gpu_se_tpu_torch.ops import _build
 from gpu_se_tpu_torch.ops import resample_coarse as rc
+from gpu_se_tpu_torch.ops import resample_pallas2 as rp2
 from gpu_se_tpu_torch.ops import resample_pallas3 as rp3
 from gpu_se_tpu_torch.ops import resample_pallas4 as rp4
 from gpu_se_tpu_torch.ops import resample_pallas_block as rpb
 from gpu_se_tpu_torch.ops.resample_coarse import ends_from_weights
 
-FIXTURE = os.path.join(os.path.dirname(__file__), "data",
-                       "torch_parity_step.npz")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "tests", "data", "torch_parity_step.npz")
+GSUKF_FIXTURE = os.path.join(REPO, "tests", "data", "torch_parity_gsukf.npz")
 SIZES = [4096, 5000, 8192, 2**20]
 FAMILIES = ["uniform", "near_uniform", "heavy"]
 REGIMES = ["heavy", "near_uniform"]
 # output rows of one 4096-particle step that may differ from the
 # reference's: one per `ends` entry moved by a cumsum tie (0-4 seen)
 STEP_TIE_ROWS = 8
+# the GSUKF on the card: the weights go through the mixture's einsum
+# (cuBLAS) and exp, an ulp or so off the reference's
+W_RTOL = 1e-5
 
 
 def _case(n, family, nx=5):
@@ -66,13 +72,13 @@ def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors the wrappers never build or load the library and
     count no launch."""
     parts, w, r = _case(4096, "heavy")
-    before = (rp4.compact.launches, rp4.search_gather.launches)
+    before = (rp4.compact.launches, rp4.expand.launches)
     ends = ends_from_weights(torch.from_numpy(w), torch.tensor(r))
     x = torch.from_numpy(parts)
     got = rp4.resample_core(x, ends)
     want = rp4.resample_core_plain(x, ends)
     assert all(torch.equal(g, wt) for g, wt in zip(got, want))
-    assert (rp4.compact.launches, rp4.search_gather.launches) == before
+    assert (rp4.compact.launches, rp4.expand.launches) == before
     assert _build._lib is None
 
 
@@ -82,7 +88,7 @@ def test_library_name_tracks_sources():
     assert path == _build.library_path()
     assert [p.name for p in _build.sources()] == [
         "resample.cu", "resample_block.cu", "resample_coarse.cu",
-        "resample_merge.cu"]
+        "resample_expand.cu", "resample_merge.cu"]
 
 
 def test_library_name_tracks_headers(tmp_path, monkeypatch):
@@ -115,17 +121,16 @@ def test_kernels_equal_plain_on_card(cuda, n, family):
     x = torch.from_numpy(parts).to(cuda)
     ends = ends_from_weights(torch.from_numpy(w).to(cuda),
                              torch.tensor(r, device=cuda))
-    launches = (rp4.compact.launches, rp4.search_gather.launches)
+    launches = (rp4.compact.launches, rp4.expand.launches)
     got = rp4.compact(ends, x)
     for g, wt in zip(got, rp4.compact_plain(ends, x)):
         assert torch.equal(g, wt)
     c_keys, c_payload, c_idx, _ = got
     for args in ((c_keys, c_payload, c_idx), (ends, x)):      # both routes
-        for g, wt in zip(rp4.search_gather(*args),
-                         rp4.search_gather_plain(*args)):
+        for g, wt in zip(rp4.expand(*args), rp4.expand_plain(*args)):
             assert torch.equal(g, wt)
     torch.cuda.synchronize()
-    assert (rp4.compact.launches, rp4.search_gather.launches) == (
+    assert (rp4.compact.launches, rp4.expand.launches) == (
         launches[0] + 1, launches[1] + 2)
 
 
@@ -263,9 +268,9 @@ def test_ends_merge_four_block_feed_on_card(cuda):
 
 @pytest.mark.gpu
 def test_router_auto_routes_launch_their_kernels_on_card(cuda):
-    """Auto on CUDA tensors: ``(n, 5)`` takes compact + search_gather,
-    ``(n, 8)`` the cumsum merge, a (means, covs) bank the ends merge
-    and ``systematic_resample_bank`` compact + search_gather; each equals
+    """Auto on CUDA tensors: ``(n, 5)`` takes compact + expand, ``(n,
+    8)`` the cumsum merge, a (means, covs) bank the ends merge and
+    ``systematic_resample_bank`` compact + expand; each equals
     its route's plain versions on the same tensors. ``impl("coarse")``
     takes the coarse search."""
     n = 2**16
@@ -279,7 +284,7 @@ def test_router_auto_routes_launch_their_kernels_on_card(cuda):
             rng.standard_normal(shape).astype(np.float32)).to(cuda)
 
     def counts():
-        return (rp4.compact.launches, rp4.search_gather.launches,
+        return (rp4.compact.launches, rp4.expand.launches,
                 rpb.ends_merge_round.launches, rp3.cumsum_merge.launches,
                 rc.coarse_gather.launches)
 
@@ -319,7 +324,7 @@ def test_router_auto_routes_launch_their_kernels_on_card(cuda):
                                            ("v3", "cumsum_merge"),
                                            ("pallas", "cumsum_merge"),
                                            ("coarse", "coarse_gather"),
-                                           ("auto", "search_gather")])
+                                           ("auto", "expand")])
 def test_flat_filter_steps_on_card(cuda, route, kernel):
     """Three chained ``ParticleFilter`` steps at 2^16 through a route:
     one launch of the route's kernel per step, finite moments."""
@@ -341,7 +346,7 @@ def test_flat_filter_steps_on_card(cuda, route, kernel):
     fn = {"ends_merge_round": rpb.ends_merge_round,
           "cumsum_merge": rp3.cumsum_merge,
           "coarse_gather": rc.coarse_gather,
-          "search_gather": rp4.search_gather}[kernel]
+          "expand": rp4.expand}[kernel]
     u = torch.tensor([0.06, 0.2], device=cuda)
     z = bio.static_outputs(torch.from_numpy(x_ss)).to(torch.float32).to(cuda)
     before = fn.launches
@@ -378,3 +383,131 @@ def test_philox_draw_distribution_on_card(cuda):
         assert np.all(np.abs(mean_err) < 4 * sd / np.sqrt(m))
         se = np.sqrt(3 * (np.outer(sd**2, sd**2) + cov**2) / m)
         assert np.all(np.abs(np.cov(pick.T) - cov) < 4 * se)
+
+
+# ----------------------------------------------------------------------
+# the v2 expansion kernel and the GSUKF
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n", [4096, 5001, 2**20])
+def test_expand_equals_plain_at_every_block_on_card(cuda, n, family):
+    """On compacted keys (strictly increasing, the window bound holds)
+    and on the raw ``ends`` (repeated keys: the search runs past the
+    window), at chunk sizes from 1 to past the staged window; every
+    chunk size gives the same bits."""
+    parts, w, r = _case(n, family)
+    x = torch.from_numpy(parts).to(cuda)
+    ends = ends_from_weights(torch.from_numpy(w).to(cuda),
+                             torch.tensor(r, device=cuda))
+    c_keys, c_payload, c_idx, _ = rp4.compact(ends, x)
+    launches = rp2.expand.launches
+    calls = 0
+    for args in ((c_keys, c_payload, c_idx), (ends, x)):
+        want = rp2.expand_plain(*args)
+        for block in (1, 512, 1024, 2048, 4096, 10000):
+            got = rp2.expand(*args, block=block)
+            calls += 1
+            for g, p in zip(got, want):
+                assert torch.equal(g, p)
+    torch.cuda.synchronize()
+    assert rp2.expand.launches == launches + calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window, block", [(1024, 1024), (4096, 2048)])
+def test_v2_entry_on_card_equals_the_plain_route(cuda, window, block):
+    """The v2 entry on the card against the plain route on the CPU, given
+    the card's ``ends``: bit-equal rows and ancestors."""
+    n = 2**16
+    parts, w, r = _case(n, "heavy")
+    x = torch.from_numpy(parts.T.copy()).to(cuda)
+    w_d, r_d = torch.from_numpy(w).to(cuda), torch.tensor(r, device=cuda)
+    before = (rp4.compact.launches, rp2.expand.launches)
+    got, anc = rp2.resample_v2_core(x, w_d, r_d, window, block)
+    torch.cuda.synchronize()
+    assert (rp4.compact.launches, rp2.expand.launches) == (
+        before[0] + 1, before[1] + 1)
+    idx = rs.indices_from_ends(ends_from_weights(w_d, r_d).cpu())
+    assert torch.equal(anc.cpu(), idx)
+    assert torch.equal(got.cpu(), x.cpu()[idx.long()])
+
+
+@pytest.mark.gpu
+def test_gsukf_step_on_card_matches_fixture(cuda):
+    """The reference's GSUKF step (tests/data/torch_parity_gsukf.npz) on
+    the card: means bit-equal, weights within ``W_RTOL``, covariances
+    exactly symmetric; given the reference's ``ends`` the bank resample
+    is bit-equal; the whole step, with the card's own ``ends``, differs
+    in at most ``STEP_TIE_ROWS`` rows. The v2 entry equals the
+    reference's on its integer-weight case."""
+    d = np.load(GSUKF_FIXTURE)
+    meas = convert.gaussian_sum_from_numpy(
+        *(d[f"meas_{f}"] for f in ("means", "covariances", "weights", "chol",
+                                   "inv_cov", "log_const")), device=cuda)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(cuda)
+
+    n = d["means_in"].shape[0]
+    noise = t(rig.gsukf_noise(d["noise_sd"], n, int(d["noise_seed"])))
+    args = (t(d["u"]), t(d["z"]))
+    means, covs = gsf.predict_core(t(d["means_in"]), t(d["covs_in"]),
+                                   args[0], t(d["dt"]), noise,
+                                   bio.homeostatic_des, noise_is_lanes=True)
+    means, covs, w = gsf.update_core(means, covs, t(d["w_in"]), *args,
+                                     bio.static_outputs, meas)
+    assert torch.equal(covs, covs.mT)
+    np.testing.assert_array_equal(means.cpu().numpy(), d["upd_means"])
+    np.testing.assert_allclose(w.cpu().numpy(), d["upd_w"], rtol=W_RTOL,
+                               atol=0)
+    ti, tj = torch.triu_indices(5, 5, device=cuda)
+    payload = torch.cat([means.T, covs[:, ti, tj].T]).contiguous()
+    out, _ = rp4.resample_core(payload, t(d["ends"]))
+    np.testing.assert_array_equal(out[:5].T.cpu().numpy(), d["out_means"])
+    (m2, c2), _ = gsf.step_from_noise(
+        t(d["means_in"]), t(d["covs_in"]), t(d["w_in"]), *args, t(d["dt"]),
+        bio.homeostatic_des, bio.static_outputs, meas, noise, t(d["r"]),
+        noise_is_lanes=True)
+    differ = (np.any(m2.cpu().numpy() != d["out_means"], axis=1)
+              | np.any(c2.cpu().numpy() != d["out_covs"], axis=(1, 2)))
+    assert np.count_nonzero(differ) <= STEP_TIE_ROWS
+    parts, w2, r2 = rig.v2_case(n, int(d["v2_seed"]))
+    got = rp2.fused_systematic_resample_v2(
+        t(parts), t(w2), torch.tensor(r2, device=cuda),
+        window=int(d["v2_window"]), block=int(d["v2_block"]))
+    np.testing.assert_array_equal(got.cpu().numpy(), d["v2_out"])
+
+
+@pytest.mark.gpu
+def test_gsukf_filter_steps_on_card(cuda):
+    """Three chained filter steps at 2^16 Gaussians through the bank
+    route: one compact and one expand per step, exactly symmetric
+    covariances, finite moments."""
+    x_ss = np.array([280 / 180, 640 / 24.6, 1000 / 116, 0.0, 0.0])
+    x0 = GaussianSum.create(np.stack([x_ss, x_ss]),
+                            np.stack([np.eye(5) * 1e-4, np.eye(5) * 1e-3]),
+                            np.array([0.75, 0.25]))
+    state_pdf = GaussianSum.create(
+        np.zeros((2, 5)), np.stack([np.diag([1e-4, 1e-7, 1e-3, 1e-3, 1e-7]),
+                                    np.diag([1e-3, 1e-6, 1e-2, 1e-2, 1e-6])]),
+        np.array([0.75, 0.25]))
+    meas = GaussianSum.create(
+        np.array([[1e-1, 0], [0, -1e-1]]),
+        np.array([[[6e-2, 0], [0, 8e-2]], [[500, 100], [100, 700]]]),
+        np.array([0.85, 0.15]))
+    filt = gsf.GaussianSumUnscentedKalmanFilter(
+        bio.homeostatic_des, bio.static_outputs, 2**16, x0, state_pdf, meas,
+        seed=2)
+    assert filt.means.is_cuda
+    u = torch.tensor([0.06, 0.2], device=cuda)
+    z = bio.static_outputs(torch.from_numpy(x_ss)).to(torch.float32).to(cuda)
+    before = (rp4.compact.launches, rp4.expand.launches)
+    for _ in range(3):
+        filt.step(u, z, 0.1)
+    torch.cuda.synchronize()
+    assert (rp4.compact.launches - before[0],
+            rp4.expand.launches - before[1]) == (3, 3)
+    assert torch.equal(filt.covariances, filt.covariances.mT)
+    est, cov = filt.moments()
+    assert torch.isfinite(est).all() and torch.isfinite(cov)

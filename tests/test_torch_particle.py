@@ -49,7 +49,7 @@ DT = np.float32(0.1)
 
 def _to_torch(jgs):
     return convert.gaussian_sum_from_numpy(
-        *(np.asarray(getattr(jgs, f)) for f in FIELDS))
+        *(np.asarray(getattr(jgs, f)) for f in FIELDS), device="cpu")
 
 
 def _t(a):
@@ -177,7 +177,8 @@ def _filter(n=4096, seed=0, **kw):
     x0, state_pdf, meas_pdf = _rig()
     shell = MultivariateGaussianSum(np.asarray(meas_pdf.means),
                                     np.asarray(meas_pdf.covariances),
-                                    np.asarray(meas_pdf.weights))
+                                    np.asarray(meas_pdf.weights),
+                                    device="cpu")
     return tpf.ParticleFilter(F_T, G_T, n, _to_torch(x0),
                               _to_torch(state_pdf), shell, seed=seed, **kw)
 
@@ -238,7 +239,7 @@ def test_pf_state_from_numpy_starts_the_filter(ref):
     np.testing.assert_array_equal(state.weights.numpy(), ref["w_in"])
     stepped = tpf.step(state, _t(U), _t(ref["z"]), _t(DT), F_T, G_T,
                        TGS.create(np.zeros((1, 5)), np.eye(5)[None] * 1e-4,
-                                  [1.0]), ref["meas"])
+                                  [1.0], device="cpu"), ref["meas"])
     assert stepped.particles.shape == state.particles.shape
     assert torch.isfinite(stepped.particles).all()
 
@@ -248,6 +249,6 @@ def test_as_dist_accepts_a_mixture_or_a_shell():
     t = _to_torch(meas)
     shell = MultivariateGaussianSum(np.asarray(meas.means),
                                     np.asarray(meas.covariances),
-                                    np.asarray(meas.weights))
+                                    np.asarray(meas.weights), device="cpu")
     assert tpf._as_dist(t) is t
     assert tpf._as_dist(shell) is shell.dist

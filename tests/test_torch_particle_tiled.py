@@ -67,7 +67,7 @@ def _rig():
 
 def _to_torch(jgs):
     return convert.gaussian_sum_from_numpy(
-        *(np.asarray(getattr(jgs, f)) for f in FIELDS))
+        *(np.asarray(getattr(jgs, f)) for f in FIELDS), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +98,7 @@ def test_step_from_noise_matches_reference_step(regenerated, regime):
     ones its direct route."""
     d = regenerated
     meas = convert.gaussian_sum_from_numpy(
-        *(d[f"meas_{f}"] for f in FIELDS))
+        *(d[f"meas_{f}"] for f in FIELDS), device="cpu")
     args = (_t(d["x_in"]), _t(d["u"]), _t(d[f"{regime}_z"]), _t(d["dt"]),
             tbio.homeostatic_des, tbio.static_outputs, meas)
     want = d[f"{regime}_x_out"]
@@ -111,7 +111,7 @@ def test_step_from_noise_matches_reference_step(regenerated, regime):
     assert np.count_nonzero(differ) <= STEP_TIE_ROWS
     # a differing row is one whose ancestor moved, not a changed value
     ends = t_ends(w, _t(d["r"]))
-    moved = (trp4.search_gather_plain(ends, xn)[1].numpy()
+    moved = (trp4.expand_plain(ends, xn)[1].numpy()
              != np.asarray(j_indices(jnp.asarray(d[f"{regime}_ends"]))))
     np.testing.assert_array_equal(differ, moved)
 
@@ -232,7 +232,8 @@ def test_statistical_agreement_with_reference_step(regenerated):
 
 
 def test_init_and_step_are_reproducible_from_a_seed():
-    x0, state_pdf, meas_pdf = (TGS.create(*a) for a in FIX.bench_rig())
+    x0, state_pdf, meas_pdf = (TGS.create(*a, device="cpu")
+                               for a in FIX.bench_rig())
     u = torch.tensor([0.06, 0.2])
     z = tbio.static_outputs(torch.from_numpy(FIX.X_SS)).to(torch.float32)
     runs = []

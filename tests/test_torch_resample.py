@@ -112,14 +112,14 @@ def test_compact_plain_vs_flatnonzero(n, family):
 @pytest.mark.parametrize("n", SIZES)
 def test_both_routes_bit_equal_to_jax(n, family):
     """Compacted route (``resample_core``) and direct route
-    (``search_gather`` on ``ends``) against the reference's
+    (``expand`` on ``ends``) against the reference's
     ``indices_from_ends`` + ``sorted_row_gather``, given its ``ends``."""
     parts, w, r = _case(n, family)
     ends = _jax_ends(w, r)
     idx = np.asarray(j_indices(jnp.asarray(ends)))
     rows = np.asarray(j_gather(jnp.asarray(parts.T), jnp.asarray(idx))).T
     x, e = torch.from_numpy(parts), torch.from_numpy(ends)
-    for out, anc in (trp4.resample_core(x, e), trp4.search_gather(e, x)):
+    for out, anc in (trp4.resample_core(x, e), trp4.expand(e, x)):
         np.testing.assert_array_equal(anc.numpy(), idx)
         np.testing.assert_array_equal(out.numpy(), rows)
     np.testing.assert_array_equal(t_indices(e).numpy(), idx)
@@ -152,7 +152,7 @@ def test_systematic_resample_tiled_entry(family):
     torch.testing.assert_close(anc, idx, rtol=0, atol=0)
     torch.testing.assert_close(rows, trs.sorted_row_gather(p, idx),
                                rtol=0, atol=0)
-    pos = trs.systematic_positions(5000, rt)
+    pos = trs.systematic_positions(5000, rt, device="cpu")
     cs = torch.cumsum(wt, 0) / torch.cumsum(wt, 0)[-1]
     # ancestors invert the stratified positions, up to cumsum ties
     seen = torch.searchsorted(cs, pos).clamp_max(4999).to(torch.int32)
@@ -163,8 +163,8 @@ def test_wrappers_reject_bad_inputs():
     e = torch.arange(16, dtype=torch.int32)
     x = torch.zeros((3, 16))
     with pytest.raises(TypeError):
-        trp4.search_gather(e.to(torch.int64), x)
+        trp4.expand(e.to(torch.int64), x)
     with pytest.raises(ValueError):
         trp4.compact(e, torch.zeros((3, 15)))
     with pytest.raises(ValueError):
-        trp4.search_gather(e, torch.zeros((16, 3)).T)
+        trp4.expand(e, torch.zeros((16, 3)).T)

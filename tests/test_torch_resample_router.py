@@ -125,13 +125,15 @@ def test_block_round_bit_equal_to_pallas(n, family, nx, pipelined):
             jnp.asarray(ends), jnp.asarray(parts), 0,
             *jrb.block_resample_state(n, nx), interpret=True)
         got = trb.block_resample_round_pipelined(
-            _t(ends), _t(parts), 0, *trb.block_resample_state(n, nx))
+            _t(ends), _t(parts), 0,
+            *trb.block_resample_state(n, nx, device="cpu"))
     else:
         want = jrb.pallas_block_resample_round(
             jnp.asarray(ends), jnp.asarray(parts), 0,
             *jrb.block_resample_state(n, nx), interpret=True)
         got = trb.block_resample_round(
-            _t(ends), _t(parts), 0, *trb.block_resample_state(n, nx))
+            _t(ends), _t(parts), 0,
+            *trb.block_resample_state(n, nx, device="cpu"))
     for g, wt in zip(got, _np(want)):
         assert g.numpy().dtype == wt.dtype and g.shape == wt.shape
         np.testing.assert_array_equal(g.numpy(), wt)
@@ -152,8 +154,8 @@ def test_block_rounds_four_block_feed(shards):
                 "pipe": jrb.pallas_block_resample_round_pipelined}
     t_rounds = {"sync": trb.block_resample_round,
                 "pipe": trb.block_resample_round_pipelined}
-    whole = trb.block_resample_round(_t(ends), _t(parts), 0,
-                                     *trb.block_resample_state(n, 5))
+    whole = trb.block_resample_round(
+        _t(ends), _t(parts), 0, *trb.block_resample_state(n, 5, device="cpu"))
     # one kernel serves both entries: keep the interpret-mode runs few
     held = ({"sync": [0], "pipe": [0]} if shards == 1
             else {"sync": [1], "pipe": []})
@@ -161,7 +163,7 @@ def test_block_rounds_four_block_feed(shards):
         for s in range(shards):
             slot0 = s * n_local
             js = jrb.block_resample_state(n_local, 5)
-            ts = trb.block_resample_state(n_local, 5)
+            ts = trb.block_resample_state(n_local, 5, device="cpu")
             for q in range(n_blocks):
                 sl = slice(q * n_blk, (q + 1) * n_blk)
                 ts = t_rounds[name](_t(ends[sl]), _t(parts[sl]), slot0, *ts,
@@ -197,14 +199,15 @@ def test_block_round_state_contract():
     ends = torch.arange(256, dtype=torch.int32)
     parts = torch.zeros((256, 5))
     with pytest.raises(ValueError, match="block_slots"):
-        trb.block_resample_round(ends, parts, 0,
-                                 *trb.block_resample_state(200, 5))
+        trb.block_resample_round(
+            ends, parts, 0, *trb.block_resample_state(200, 5, device="cpu"))
     with pytest.raises(ValueError, match="columns"):
-        trb.block_resample_round(ends, parts, 0,
-                                 *trb.block_resample_state(256, 9))
+        trb.block_resample_round(
+            ends, parts, 0, *trb.block_resample_state(256, 9, device="cpu"))
     with pytest.raises(ValueError, match="32"):
-        trb.block_resample_state(256, 33)
-    assert trb.block_resample_state(256, 30)[1].shape == (256, 32)
+        trb.block_resample_state(256, 33, device="cpu")
+    state = trb.block_resample_state(256, 30, device="cpu")
+    assert state[1].shape == (256, 32)
 
 
 # ----------------------------------------------------------------------
@@ -501,7 +504,7 @@ def test_forced_route_on_cpu_matches_reference(monkeypatch, route, family):
     ttree = jax.tree_util.tree_map(_to_torch, tree)
     _inject(monkeypatch, w, r)
     before = (trb.ends_merge_round.launches, trp3.cumsum_merge.launches,
-              trp4.compact.launches, trp4.search_gather.launches,
+              trp4.compact.launches, trp4.expand.launches,
               trc.coarse_gather.launches)
     with trs.impl(route):
         if route == "bank":
@@ -510,7 +513,7 @@ def test_forced_route_on_cpu_matches_reference(monkeypatch, route, family):
         else:
             got, got_w = trs.systematic_resample_from_r(ttree, _t(w), _t(r))
     assert (trb.ends_merge_round.launches, trp3.cumsum_merge.launches,
-            trp4.compact.launches, trp4.search_gather.launches,
+            trp4.compact.launches, trp4.expand.launches,
             trc.coarse_gather.launches) == before
     np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
     got_l, want_l = _leaves_np(got), _leaves_np(want)
@@ -636,7 +639,7 @@ def test_merges_copy_signed_zero_and_non_finite_rows_exactly():
     anc = trs.indices_from_ends(ends).numpy()
     want = parts[anc]
     counts, acc, _ = trb.block_resample_round(
-        ends, _t(parts), 0, *trb.block_resample_state(n, 5))
+        ends, _t(parts), 0, *trb.block_resample_state(n, 5, device="cpu"))
     out, anc_m = trp3.cumsum_merge(_t(_jax_cs(w)), _t(parts.T), _t(r))
     out_c, anc_c = trc.coarse_gather(ends, trc.chunk_boundaries(ends, n),
                                      _t(parts.T))
