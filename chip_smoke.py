@@ -7,7 +7,14 @@ Phases, each of which raises on failure:
 3. each kernel against its plain PyTorch version (``torch.equal`` on
    every output) for uniform, near-uniform and heavy-tailed weights at
    n = 4096, an odd or unaligned n and 2^20, and the ``ends`` merge fed
-   four ascending blocks into four shards against one round;
+   four ascending blocks into four shards against one round; ``compact``
+   and ``expand`` also on the edge cases of ``gpu_se_tpu_torch/rig.py``
+   (all survive, one survivor, heavy tails; n from 1 to 2^24 around
+   ``compact``'s tile; 1 to 30 rows; ``expand`` in chunks of 1 to 10000
+   slots on compacted and on repeated keys), and ``compact`` 200 times in
+   a row on one input at 2^20 and at 2^24 with the same bits every time
+   (a race in its look-back would show as a rare wrong prefix), timed at
+   both sizes. A watchdog ends the run if these cases hang;
 4. the CUDA tiled and flat steps against the committed reference step
    (``tests/data/torch_parity_step.npz``);
 5. the tiled main path: the tiled particle-filter step of ``bench.py``'s
@@ -65,11 +72,13 @@ last, ``{"ok": true, "device": {...}}``. Run from the repository root::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -99,6 +108,10 @@ STEPS = 50
 ROUTE_STEPS = 10
 GSUKF_STEPS = 30
 REPS = 30
+PROFILE_TRIES = 10
+COMPACT_REPEATS = 200
+N_MANY_TILES = 2**24     # more tiles of `compact` than blocks the card holds
+WATCHDOG_S = 300
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_parity_step.npz")
 GSUKF_FIXTURE = os.path.join(REPO, "tests", "data",
@@ -228,26 +241,33 @@ def expand_bound(n: int, m: int, rows: int, block: int):
 def device_ms(fn, reps: int = REPS, setup=None) -> float:
     """Device time of one call of ``fn``: the union of its device ops'
     intervals (``busy_ms``) over ``reps`` synchronised calls, by
-    ``torch.profiler``, divided by ``reps``. Unlike :func:`time_ms` it
-    leaves out the host's launch latency, which on this path is of the
-    kernels' own size. With ``setup``, each call is ``fn(*setup())`` on
-    arguments all made before the first call, so that their making is
-    not timed."""
+    ``torch.profiler``, divided by ``reps``; a trace that lost device
+    events is profiled again, ``PROFILE_TRIES`` times at most. Unlike
+    :func:`time_ms` it leaves out the host's launch latency, which on
+    this path is of the kernels' own size. With ``setup``, each call is
+    ``fn(*setup())`` on arguments all made before the first call, so
+    that their making is not timed."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = [setup() if setup else () for _ in range(reps + 3)]
-    for a in args[:3]:
-        fn(*a)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for a in args[3:]:
+    for attempt in range(PROFILE_TRIES):
+        args = [setup() if setup else () for _ in range(reps + 3)]
+        for a in args[:3]:
             fn(*a)
-            torch.cuda.synchronize()
-    busy, _, ops, _ = busy_ms(prof)
-    if not ops:
-        raise AssertionError("the profiler saw no device time")
-    return busy / reps
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for a in args[3:]:
+                fn(*a)
+                torch.cuda.synchronize()
+        busy, _, ops, _ = busy_ms(prof)
+        # the profiler now and then drops device events (a trace of 30
+        # calls has shown 28, 29 or 59): only a trace with the same
+        # whole number of device ops for every call counts
+        if ops > 0 and ops % reps == 0:
+            return busy / reps
+        log(f"device_ms: {ops} device ops over {reps} calls, profiling "
+            f"again ({attempt + 1} of {PROFILE_TRIES})")
+    raise AssertionError("the profiler saw no whole set of device events")
 
 
 def max_abs_err(got, want) -> float:
@@ -305,7 +325,10 @@ def phase_card() -> tuple[str, torch.device]:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.load_library()
+    lib = _build.load_library()
+    # the constants the CPU tests' models of the kernels are written for
+    assert lib.gst_compact_tile() == rig.COMPACT_TILE
+    assert lib.gst_expand_max_stage() == rig.EXPAND_MAX_STAGE
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(_build.library_path())}")
 
@@ -325,6 +348,80 @@ def harness_rig(dev):
     return (GaussianSum.create(state[0] + X_SS, *state[1:], device=dev),
             GaussianSum.create(*state, device=dev),
             GaussianSum.create(*meas, device=dev))
+
+
+@contextlib.contextmanager
+def watchdog(seconds: float, what: str):
+    """End the process (exit code 3) if the body runs longer than
+    ``seconds``: a kernel that waits for ever blocks every synchronise,
+    so nothing in this thread could raise."""
+    def bark():
+        print(f"watchdog: {what} still running after {seconds} s",
+              flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, bark)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def edge_inputs(case, dev, seed: int):
+    """``(ends, payload)`` of one of ``rig.edge_cases()`` on ``dev``."""
+    family, n, rows = case
+    exact = rig.edge_exact_ends(family, n)
+    if exact is not None:
+        ends = torch.from_numpy(exact).to(dev)
+    else:
+        w, r = rig.edge_weights(family, n, seed)
+        ends = ends_from_weights(torch.from_numpy(w).to(dev),
+                                 torch.tensor(r, device=dev))
+    return ends, torch.from_numpy(rig.edge_payload(rows, n, seed)).to(dev)
+
+
+def phase_edge_cases(dev, seed: int) -> None:
+    """``compact`` and ``expand`` against their plain versions on every
+    shared edge case; ``expand`` at every chunk size, on the compacted
+    keys (with their indices) and on the raw ``ends`` (repeated keys, no
+    indices)."""
+    for case in rig.edge_cases():
+        ends, x = edge_inputs(case, dev, seed)
+        got = rp4.compact(ends, x)
+        assert_equal(f"compact {rig.edge_id(case)}", got,
+                     rp4.compact_plain(ends, x))
+        for route, args in (("compacted", got[:3]), ("repeated", (ends, x))):
+            want = rp4.expand_plain(*args)
+            for block in rig.EXPAND_BLOCKS:
+                assert_equal(f"expand {rig.edge_id(case)} {route} "
+                             f"block={block}",
+                             rp4.expand(*args, block=block), want)
+        torch.cuda.synchronize()
+        log(f"edge case {rig.edge_id(case)}: compact == plain (survivors "
+            f"{int(got[3].item())}), expand == plain on compacted and "
+            f"repeated keys at blocks {list(rig.EXPAND_BLOCKS)}")
+
+
+def phase_compact_repeats(dev, seed: int, card: str) -> None:
+    """``compact`` ``COMPACT_REPEATS`` times on one heavy-tailed input at
+    2^20 and at 2^24: the same bits as the plain version every time, then
+    its device time beside its bound."""
+    for n in (N, N_MANY_TILES):
+        ends, x = edge_inputs(("heavy", n, 5), dev, seed)
+        want = rp4.compact_plain(ends, x)
+        for rep in range(COMPACT_REPEATS):
+            assert_equal(f"compact n={n}, repeat {rep}",
+                         rp4.compact(ends, x), want)
+        m = int(want[3].item())
+        del want
+        k1, k2 = (device_ms(lambda: rp4.compact(ends, x), reps=10)
+                  for _ in range(2))
+        bound = least_time(4 * n + 20 * m + (8 + 20) * n, 2 * n)
+        log(f"compact n={n}: {COMPACT_REPEATS} repeats == plain; kernel "
+            f"{k1:.4f}/{k2:.4f} ms (device time, mean of 10, {card}); "
+            f"bound {bound[0]:.4f} ms ({bound[1]}; {m} survivors)")
 
 
 def phase_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
@@ -627,7 +724,8 @@ def phase_main_path(dev, seed: int, card: str):
         f"({card})")
     m = int(count.item())
     # compact reads ends and the survivors' payload columns, writes keys,
-    # indices and payload of every entry
+    # indices and payload of every entry; the memset of its look-back
+    # words (8 bytes per 2048 entries) is left out as negligible
     bounds = {"compact": least_time(4 * N + 20 * m + (8 + 20) * N, 2 * N),
               "expand": expand_bound(N, m, 5, rp4.EXPAND_BLOCK)}
     log(f"bounds: compact {bounds['compact'][0]:.4f} ms, expand "
@@ -1118,6 +1216,10 @@ def main() -> int:
     card, dev = phase_card()
     phase_build()
     errs = phase_kernels_vs_plain(dev, args.seed)
+    with watchdog(WATCHDOG_S, "the edge cases and repeats of compact and "
+                              "expand"):
+        phase_edge_cases(dev, args.seed)
+        phase_compact_repeats(dev, args.seed, card)
     errs.update(phase_merge_kernels_vs_plain(dev, args.seed))
     phase_fixture(dev)
     phase_fixture_gsukf(dev)

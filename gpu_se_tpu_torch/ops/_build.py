@@ -36,10 +36,13 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gst_compact_blocks": [_I],
-    # ends, payload, rows, n, block_counts, block_offsets,
-    # c_keys, c_payload, c_idx, count, stream
-    "gst_compact": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # the entries of a compact tile; the keys an expand block stages at most
+    "gst_compact_tile": [],
+    "gst_expand_max_stage": [],
+    # n -> 64-bit scratch words (the ticket and one word per tile)
+    "gst_compact_words": [_I],
+    # ends, payload, rows, n, words, c_keys, c_payload, c_idx, count, stream
+    "gst_compact": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     # ends, n_blk, parts, nx, slot0, n_local, counts, acc, cols,
     # finalized, stream
     "gst_ends_merge_round": [_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P],

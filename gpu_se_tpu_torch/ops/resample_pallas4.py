@@ -6,12 +6,14 @@ Counterpart of ``gpu_se_tpu/ops/resample_pallas4.py``:
   and ``resample_pallas2._expand_kernel``): the ancestor of each output
   slot ``i`` is the first ``j`` with ``keys[j] >= i``; gathers that
   column of the payload and, optionally, its original index. One CUDA
-  block per chunk of output slots searches the chunk's survivor window
-  in shared memory;
+  block per chunk of output slots brackets the chunk's survivor window
+  with one warp, stages it in shared memory and searches it there, one
+  thread per 4 slots;
 * :func:`compact` (K2, ``csrc/resample.cu``, replaces ``_compact_kernel``
   and ``resample_pallas2._compact_kernel``): keeps the entries with
   ``ends_k > ends_{k-1}`` (exactly the possible ancestors) in order, then
-  pads with ``INT32_MAX`` keys.
+  pads with ``INT32_MAX`` keys: one launch, a single-pass scan with
+  decoupled look-back.
 
 Every route that gathers from compacted keys (the tiled step, the flat
 filter's auto route, the Gaussian bank and the v2 entry) takes the same
@@ -147,8 +149,9 @@ def compact(ends: torch.Tensor, payload: torch.Tensor):
         return compact_plain(ends, payload)
     lib = _build.load_library()
     rows = payload.shape[0]
-    nblocks = lib.gst_compact_blocks(n)
-    scratch = torch.empty((2, nblocks), dtype=torch.int32, device=dev)
+    # the look-back's ticket and tile words; the kernel's entry zeroes them
+    words = torch.empty((lib.gst_compact_words(n),), dtype=torch.int64,
+                        device=dev)
     c_keys = torch.empty((n,), dtype=torch.int32, device=dev)
     c_payload = torch.empty((rows, n), dtype=torch.float32, device=dev)
     c_idx = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -156,9 +159,8 @@ def compact(ends: torch.Tensor, payload: torch.Tensor):
     with torch.cuda.device(dev):
         rc = lib.gst_compact(
             ends.data_ptr(), payload.data_ptr(), rows, n,
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            c_keys.data_ptr(), c_payload.data_ptr(), c_idx.data_ptr(),
-            count.data_ptr(), _build.stream(dev))
+            words.data_ptr(), c_keys.data_ptr(), c_payload.data_ptr(),
+            c_idx.data_ptr(), count.data_ptr(), _build.stream(dev))
     _build.launch_check("compact", rc)
     compact.launches += 1
     return c_keys, c_payload, c_idx, count

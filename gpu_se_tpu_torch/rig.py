@@ -2,8 +2,10 @@
 
 ``scripts/make_torch_parity_fixture.py`` writes the fixtures from these
 inputs, and the tests and ``chip_smoke.py`` recompute the noise and
-inputs the fixtures do not store. The module imports numpy only, so the
-card, which has no JAX, can import it.
+inputs the fixtures do not store. It also holds the edge cases
+that the CPU tests, the card tests and ``chip_smoke.py`` put ``compact``
+and ``expand`` through. The module imports numpy only, so the card, which
+has no JAX, can import it.
 """
 from __future__ import annotations
 
@@ -47,3 +49,71 @@ def v2_case(n: int, seed: int = V2_SEED):
     parts = rng.standard_normal((n, NX)).astype(np.float32)
     w = np.floor(np.exp(2.0 * rng.standard_normal(n))).astype(np.float32)
     return parts, w, np.float32(rng.random())
+
+
+# ----------------------------------------------------------------------
+# edge cases of compact and expand
+# ----------------------------------------------------------------------
+# every entry survives; one does; a heavy-tailed mix (lognormal, sigma 4)
+EDGE_FAMILIES = ("all_survive", "one_survivor", "heavy")
+COMPACT_TILE = 2048                 # csrc/resample.cu kTile
+EXPAND_MAX_STAGE = 8193             # csrc/resample_expand.cu kMaxStage
+# around compact's tile, odd, one past 2^20, many tiles
+EDGE_NS = (1, 2047, 2048, 2049, 5001, 2**20 + 1, 2**24)
+EDGE_ROWS = (1, 5, 20, 30)
+# chunk sizes of expand: not a multiple of 4, the paths' own, the staging
+# limit (8192) and past it
+EXPAND_BLOCKS = (1, 3, 512, 1024, 4096, 8192, 10000)
+CPU_EDGE_N = 5001                   # the largest edge case the CPU runs
+
+
+def edge_cases(max_n: int | None = None):
+    """``(family, n, rows)`` triples: every family at every ``EDGE_NS``
+    (up to ``max_n``) with the row counts in turn (1 or 5 rows from 2^20
+    on, to bound the memory), and every row count at n = 5001."""
+    cases = []
+    for k, n in enumerate(EDGE_NS):
+        for f, family in enumerate(EDGE_FAMILIES):
+            if n < 2**20:
+                rows = EDGE_ROWS[(k + f) % len(EDGE_ROWS)]
+            else:
+                rows = 5 if family == "heavy" else 1
+            cases.append((family, n, rows))
+    cases += [("heavy", 5001, rows) for rows in EDGE_ROWS
+              if ("heavy", 5001, rows) not in cases]
+    return [c for c in cases if max_n is None or c[1] <= max_n]
+
+
+def edge_id(case) -> str:
+    return "-".join(str(v) for v in case)
+
+
+def edge_weights(family: str, n: int, seed: int = 0):
+    """``(weights (n,) float32, r float32)`` of an edge case; ``r`` keeps
+    away from 0 and 1, where uniform weights tie."""
+    rng = np.random.default_rng([seed, n, EDGE_FAMILIES.index(family)])
+    if family == "all_survive":
+        w = np.ones(n)
+    elif family == "one_survivor":
+        w = np.zeros(n)
+        w[rng.integers(n)] = 1.0
+    else:
+        w = np.exp(4.0 * rng.standard_normal(n))
+    return w.astype(np.float32), np.float32(0.25 + 0.5 * rng.random())
+
+
+def edge_exact_ends(family: str, n: int):
+    """The ``ends`` of an edge case where they are known without a
+    cumulative sum, else None: when every entry survives, entry ``k``
+    ends at slot ``k``. A float32 cumulative sum of ``n`` ones is exact
+    only up to 2^24 and its division by the total ties before that, so
+    the kernels' large cases take these ``ends`` instead."""
+    if family == "all_survive":
+        return np.arange(n, dtype=np.int32)
+    return None
+
+
+def edge_payload(rows: int, n: int, seed: int = 0):
+    """``(rows, n)`` float32 in [-0.5, 0.5)."""
+    rng = np.random.default_rng([seed, rows, n])
+    return rng.random((rows, n), dtype=np.float32) - np.float32(0.5)

@@ -511,3 +511,91 @@ def test_gsukf_filter_steps_on_card(cuda):
     assert torch.equal(filt.covariances, filt.covariances.mT)
     est, cov = filt.moments()
     assert torch.isfinite(est).all() and torch.isfinite(cov)
+
+
+# ----------------------------------------------------------------------
+# compact (one launch, decoupled look-back) and expand (warp bracket,
+# 4 slots a thread) on the edge cases shared with the CPU tests
+# ----------------------------------------------------------------------
+EDGE_CASES = rig.edge_cases()
+EDGE_IDS = [rig.edge_id(c) for c in EDGE_CASES]
+
+
+def _edge_inputs(case, dev):
+    family, n, rows = case
+    exact = rig.edge_exact_ends(family, n)
+    if exact is not None:
+        ends = torch.from_numpy(exact).to(dev)
+    else:
+        w, r = rig.edge_weights(family, n)
+        ends = ends_from_weights(torch.from_numpy(w).to(dev),
+                                 torch.tensor(r, device=dev))
+    return ends, torch.from_numpy(rig.edge_payload(rows, n)).to(dev)
+
+
+@pytest.mark.gpu
+def test_library_constants_equal_the_models_on_card(cuda):
+    """The tile and the staging limit that the CPU tests' numpy models of
+    the two kernels take are the ones the kernels were built with."""
+    lib = _build.load_library()
+    assert lib.gst_compact_tile() == rig.COMPACT_TILE
+    assert lib.gst_expand_max_stage() == rig.EXPAND_MAX_STAGE
+    assert lib.gst_compact_words(rig.COMPACT_TILE + 1) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EDGE_CASES, ids=EDGE_IDS)
+def test_compact_edge_cases_on_card(cuda, case):
+    ends, x = _edge_inputs(case, cuda)
+    launches = rp4.compact.launches
+    got = rp4.compact(ends, x)
+    for g, wt in zip(got, rp4.compact_plain(ends, x)):
+        assert torch.equal(g, wt)
+    assert rp4.compact.launches == launches + 1
+    family, n, _ = case
+    count = int(got[3])
+    if family == "all_survive":
+        assert count == n
+    elif family == "one_survivor":
+        assert count == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EDGE_CASES, ids=EDGE_IDS)
+def test_expand_edge_cases_on_card(cuda, case):
+    """Every chunk size, on the compacted keys with their indices and on
+    the raw ``ends`` (repeated keys) without."""
+    ends, x = _edge_inputs(case, cuda)
+    c_keys, c_payload, c_idx, _ = rp4.compact_plain(ends, x)
+    for args in ((c_keys, c_payload, c_idx), (ends, x)):
+        want = rp4.expand_plain(*args)
+        for block in rig.EXPAND_BLOCKS:
+            for g, p in zip(rp4.expand(*args, block=block), want):
+                assert torch.equal(g, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2**20, 2**24])
+def test_compact_repeats_give_the_same_bits_on_card(cuda, n):
+    """200 launches on one input: a race in the look-back would show as
+    a rare wrong prefix. At 2^24 there are more tiles than the card
+    holds blocks."""
+    ends, x = _edge_inputs(("heavy", n, 5), cuda)
+    want = rp4.compact_plain(ends, x)
+    for _ in range(200):
+        for g, wt in zip(rp4.compact(ends, x), want):
+            assert torch.equal(g, wt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 5001, 2**20, 2**20 + 1])
+def test_expand_without_src_idx_on_card(cuda, n):
+    """``src_idx=None`` returns the positions themselves; n a multiple of
+    4 takes the 16-byte stores, any other n the 4-byte ones."""
+    ends, x = _edge_inputs(("heavy", n, 5), cuda)
+    c_keys, c_payload, _, _ = rp4.compact(ends, x)
+    for keys, payload in ((c_keys, c_payload), (ends, x)):
+        want = rp4.expand_plain(keys, payload)
+        for block in (3, 1024):
+            for g, p in zip(rp4.expand(keys, payload, block=block), want):
+                assert torch.equal(g, p)
