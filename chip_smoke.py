@@ -14,7 +14,13 @@ Phases, each of which raises on failure:
    slots on compacted and on repeated keys), and ``compact`` 200 times in
    a row on one input at 2^20 and at 2^24 with the same bits every time
    (a race in its look-back would show as a rare wrong prefix), timed at
-   both sizes. A watchdog ends the run if these cases hang;
+   both sizes; ``ends_merge_round`` and ``cumsum_merge`` also on their
+   edge cases of ``rig`` (the same families; n from 1 to 2^24 around the
+   merge path's 2048-item block; 1 to 32 columns, 1 to 8 rows) and
+   ``ends_merge_round`` on ``rig``'s ring feeds (unequal source blocks
+   and shards, blocks wholly below and above a shard, rounds over state
+   that is already part-finalized), each round against the plain round.
+   A watchdog ends the run if these cases hang;
 4. the CUDA tiled and flat steps against the committed reference step
    (``tests/data/torch_parity_step.npz``);
 5. the tiled main path: the tiled particle-filter step of ``bench.py``'s
@@ -34,7 +40,12 @@ Phases, each of which raises on failure:
    ``systematic_resample`` (ends merge) and ``systematic_resample_bank``
    (compact + expand);
 8. the merge and coarse kernels timed against their plain versions at
-   the flat main path's inputs;
+   the flat main path's inputs; ``ends_merge_round`` also at 8 columns
+   there, at the router's 2^18 bank tree (30 columns), and both merge
+   kernels on the heavy edge case at 2^24, each time beside its bound
+   and, at the flat path's
+   input, beside the time of the one-thread-per-slot kernels the merge
+   path replaced;
 9. the flat step's stage times and, per route, ``torch.profiler`` over
    chained steps (device ops per step, busy share, the kernels with most
    device time);
@@ -72,6 +83,7 @@ last, ``{"ok": true, "device": {...}}``. Run from the repository root::
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -109,6 +121,7 @@ ROUTE_STEPS = 10
 GSUKF_STEPS = 30
 REPS = 30
 PROFILE_TRIES = 10
+CALL_MARK = "device_ms call"   # the host range of one timed call
 COMPACT_REPEATS = 200
 N_MANY_TILES = 2**24     # more tiles of `compact` than blocks the card holds
 WATCHDOG_S = 300
@@ -122,6 +135,10 @@ V2_GEOMETRIES = ((1024, 1024), (2048, 2048), (512, 512), (2048, 1024),
 # the published peaks of one H100 SXM (bytes/s, float32 operations/s)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+# device ms of the one-thread-per-slot merge kernels that the merge path
+# replaced, at the flat path's input (this script's profiler reading on an
+# NVIDIA H100 80GB HBM3 at 700.00 W)
+ONE_THREAD_PER_SLOT_MS = {"ends_merge_round": 0.0665, "cumsum_merge": 0.0372}
 # rows of a 4096-particle step that may differ from the reference's: one
 # per `ends` entry a cumsum tie moves (tests/test_torch_kernels.py)
 STEP_TIE_ROWS = 8
@@ -239,15 +256,20 @@ def expand_bound(n: int, m: int, rows: int, block: int):
 
 
 def device_ms(fn, reps: int = REPS, setup=None) -> float:
-    """Device time of one call of ``fn``: the union of its device ops'
-    intervals (``busy_ms``) over ``reps`` synchronised calls, by
-    ``torch.profiler``, divided by ``reps``; a trace that lost device
-    events is profiled again, ``PROFILE_TRIES`` times at most. Unlike
-    :func:`time_ms` it leaves out the host's launch latency, which on
-    this path is of the kernels' own size. With ``setup``, each call is
-    ``fn(*setup())`` on arguments all made before the first call, so
-    that their making is not timed."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn``: the union of the intervals of
+    the device ops the call launched, by ``torch.profiler``, averaged
+    over the whole calls among ``reps`` synchronised ones (``call_busy``).
+    The profiler now and then drops a device event (on one card, one in
+    every session of a host-syncing plain version), and a device op can
+    land in a neighbouring call's host range: the calls that show the
+    number of device ops most calls show are whole, the others are left
+    out, and a session with fewer than half its calls whole is profiled
+    again, ``PROFILE_TRIES`` times at most. Unlike :func:`time_ms` it
+    leaves out the host's launch latency, which on this path is of the
+    kernels' own size. With ``setup``, each call is ``fn(*setup())`` on
+    arguments all made before the first call, so that their making is
+    not timed."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for attempt in range(PROFILE_TRIES):
         args = [setup() if setup else () for _ in range(reps + 3)]
@@ -257,17 +279,51 @@ def device_ms(fn, reps: int = REPS, setup=None) -> float:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for a in args[3:]:
-                fn(*a)
-                torch.cuda.synchronize()
-        busy, _, ops, _ = busy_ms(prof)
-        # the profiler now and then drops device events (a trace of 30
-        # calls has shown 28, 29 or 59): only a trace with the same
-        # whole number of device ops for every call counts
-        if ops > 0 and ops % reps == 0:
-            return busy / reps
-        log(f"device_ms: {ops} device ops over {reps} calls, profiling "
-            f"again ({attempt + 1} of {PROFILE_TRIES})")
-    raise AssertionError("the profiler saw no whole set of device events")
+                with record_function(CALL_MARK):
+                    fn(*a)
+                    torch.cuda.synchronize()
+        calls = call_busy(prof.events())
+        usual = collections.Counter(ops for ops, _ in calls).most_common(1)
+        usual = usual[0][0] if usual else 0
+        whole = [busy for ops, busy in calls if ops == usual]
+        if usual > 0 and 2 * len(whole) >= reps:
+            return float(np.mean(whole))
+        log(f"device_ms: {len(whole)} of {len(calls)} calls show {usual} "
+            f"device ops, profiling again ({attempt + 1} of "
+            f"{PROFILE_TRIES})")
+    raise AssertionError("the profiler saw too few whole calls")
+
+
+def union_ms(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals in us, in
+    ms."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3
+
+
+def call_busy(events) -> list[tuple[int, float]]:
+    """``(device ops, busy ms)`` of each call that ``device_ms`` marked:
+    the device ops whose start lies in the call's ``CALL_MARK`` range on
+    the host, which ends after the call's synchronise."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    marks = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == CALL_MARK and e.device_type == cpu)
+    dev = [(e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == cuda and e.name != CALL_MARK]
+    calls = []
+    for s, e in marks:
+        spans = [d for d in dev if s <= d[0] <= e]
+        calls.append((len(spans), union_ms(spans)))
+    return calls
 
 
 def max_abs_err(got, want) -> float:
@@ -329,6 +385,9 @@ def phase_build() -> None:
     # the constants the CPU tests' models of the kernels are written for
     assert lib.gst_compact_tile() == rig.COMPACT_TILE
     assert lib.gst_expand_max_stage() == rig.EXPAND_MAX_STAGE
+    assert lib.gst_merge_threads() == rig.MERGE_THREADS
+    assert lib.gst_ends_merge_thread_items() == rig.ENDS_MERGE_ITEMS
+    assert lib.gst_cumsum_merge_thread_items() == rig.CUMSUM_MERGE_ITEMS
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(_build.library_path())}")
 
@@ -402,6 +461,71 @@ def phase_edge_cases(dev, seed: int) -> None:
         log(f"edge case {rig.edge_id(case)}: compact == plain (survivors "
             f"{int(got[3].item())}), expand == plain on compacted and "
             f"repeated keys at blocks {list(rig.EXPAND_BLOCKS)}")
+
+
+def phase_merge_edge_cases(dev, seed: int) -> dict[str, float]:
+    """``ends_merge_round`` and ``cumsum_merge`` against their plain
+    versions on their shared edge cases, and ``ends_merge_round`` on the
+    ring feeds: every shard fed every source block in ascending order,
+    each round against the plain round on the same state, the shards
+    together against one round over the whole pool."""
+    errs = {"ends_merge_round": 0.0, "cumsum_merge": 0.0}
+    for family, n, nx in rig.ends_merge_cases():
+        ends, x = edge_inputs((family, n, nx), dev, seed)
+        parts = x.T.contiguous()
+        got = rpb.ends_merge_round(ends, parts, 0,
+                                   *rpb.block_resample_state(n, nx, dev))
+        want = rpb.ends_merge_round_plain(
+            ends, parts, 0, *rpb.block_resample_state(n, nx, dev))
+        name = f"ends_merge_round {rig.edge_id((family, n, nx))}"
+        assert_equal(name, got, want)
+        errs["ends_merge_round"] = max(errs["ends_merge_round"],
+                                       max_abs_err(got, want))
+        del got, want, parts, x
+        torch.cuda.synchronize()
+        log(f"edge case {name} == plain")
+    for family, n, rows in rig.cumsum_merge_cases():
+        w, r = rig.edge_weights(family, n, seed)
+        cs = rp3.normalized_cumsum(torch.from_numpy(w).to(dev))
+        payload = torch.from_numpy(rig.edge_payload(rows, n, seed)).to(dev)
+        r = torch.tensor(r, device=dev)
+        got = rp3.cumsum_merge(cs, payload, r)
+        want = rp3.cumsum_merge_plain(cs, payload, r)
+        name = f"cumsum_merge {rig.edge_id((family, n, rows))}"
+        assert_equal(name, got, want)
+        errs["cumsum_merge"] = max(errs["cumsum_merge"],
+                                   max_abs_err(got, want))
+        del got, want, payload
+        torch.cuda.synchronize()
+        log(f"edge case {name} == plain")
+    for family, n, blocks, shards in rig.RING_FEEDS:
+        ends, x = edge_inputs((family, n, 5), dev, seed)
+        parts = x.T.contiguous()
+        whole = rpb.ends_merge_round_plain(
+            ends, parts, 0, *rpb.block_resample_state(n, 5, dev))
+        src, dst = rig.ring_bounds(n, blocks), rig.ring_bounds(n, shards)
+        kinds = {"below": 0, "above": 0, "across": 0}
+        for s0, s1 in zip(dst, dst[1:]):
+            state = rpb.block_resample_state(s1 - s0, 5, dev)
+            for b0, b1 in zip(src, src[1:]):
+                kind = ("below" if int(ends[b1 - 1]) < s0 else "above"
+                        if int(ends[b0]) >= s1 else "across")
+                kinds[kind] += 1
+                want = rpb.ends_merge_round_plain(
+                    ends[b0:b1], parts[b0:b1], s0,
+                    *[t.clone() for t in state])
+                state = rpb.ends_merge_round(ends[b0:b1], parts[b0:b1], s0,
+                                             *state)
+                assert_equal(f"ends_merge_round ring {family} n={n} shard "
+                             f"[{s0}, {s1}) block [{b0}, {b1})", state, want)
+            assert_equal(f"ends_merge_round ring {family} n={n} shard "
+                         f"[{s0}, {s1}) vs one round", state,
+                         [t[s0:s1] for t in whole])
+        torch.cuda.synchronize()
+        log(f"ends_merge_round ring feed {family} n={n}: {blocks} blocks "
+            f"into {shards} shards, every round == plain, shards == one "
+            f"round (rounds below/above/across a shard: {kinds})")
+    return errs
 
 
 def phase_compact_repeats(dev, seed: int, card: str) -> None:
@@ -852,40 +976,72 @@ def phase_router_routes(dev, seed: int) -> None:
           exact=True)
 
 
-def phase_merge_times(dev, card: str, state, r):
+def ends_round_bound(n: int, m: int, nx: int):
+    """Bound of one ``ends_merge_round`` over the whole pool: ``ends`` and
+    the survivors' ``nx`` columns read; counts and finalized read and
+    written; the ``nx`` columns of ``acc`` written (every slot finalizes
+    in one round over the whole pool)."""
+    return least_time(4 * n + 4 * nx * m + 16 * n + 4 * nx * n,
+                      search_ops(n, n))
+
+
+def survivors(ends: torch.Tensor) -> int:
+    return int(torch.count_nonzero(torch.diff(ends, prepend=ends.new_full(
+        (1,), -1))))
+
+
+def time_pair(name: str, kern, plain, card: str, bound, setup=None,
+              before: float | None = None, reps: int = REPS):
+    """Plain, kernel, kernel, plain device times; logs them beside the
+    bound (and the earlier kernel's time where given); returns
+    ``(kernel ms, plain ms)``, the better of each two."""
+    p1, k1, k2, p2 = (device_ms(plain, reps, setup),
+                      device_ms(kern, reps, setup),
+                      device_ms(kern, reps, setup),
+                      device_ms(plain, reps, setup))
+    was = ("" if before is None else
+           f"; the one-thread-per-slot kernel took {before:.4f} ms")
+    log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+        f"ms (device time, mean of {reps}, {card}); bound {bound[0]:.4f} ms "
+        f"({bound[1]}){was}")
+    return min(k1, k2), min(p1, p2)
+
+
+def phase_merge_times(dev, card: str, state, r, seed: int):
     """The merge and coarse kernels against their plain versions at the
     flat main path's inputs: the 2^20 predicted particles and their
     weights. ``ends_merge_round`` updates its carried state in place: each
     call gets a fresh zeroed state, as ``systematic_resample_ends`` makes
-    one, all made before the timed calls."""
+    one, all made before the timed calls. Then ``ends_merge_round`` at 8
+    columns on the same ``ends``, at the router's 2^18 bank tree (30
+    columns, heavy-tailed weights), and both merge kernels on the heavy
+    edge case at 2^24 (5 columns or rows)."""
     parts = state.particles.contiguous()
     ends = ends_from_weights(state.weights, r)
     cs = rp3.normalized_cumsum(state.weights)
     payload = parts.T.contiguous()
     o = rc.chunk_boundaries(ends, N)
 
-    def fresh_state():
-        return rpb.block_resample_state(N, 5, dev)
+    def ends_round(fn, e, x):
+        n, nx = x.shape
+        return lambda *st: fn(e, x, 0, *(
+            st or rpb.block_resample_state(n, nx, dev)))
 
-    def ends_round(fn):
-        return lambda *st: fn(ends, parts, 0, *(st or fresh_state()))
+    def fresh(n, nx):
+        return lambda: rpb.block_resample_state(n, nx, dev)
 
     pairs = {
-        "ends_merge_round": (ends_round(rpb.ends_merge_round),
-                             ends_round(rpb.ends_merge_round_plain)),
+        "ends_merge_round": (ends_round(rpb.ends_merge_round, ends, parts),
+                             ends_round(rpb.ends_merge_round_plain, ends,
+                                        parts)),
         "cumsum_merge": (lambda: rp3.cumsum_merge(cs, payload, r),
                          lambda: rp3.cumsum_merge_plain(cs, payload, r)),
         "coarse_gather": (lambda: rc.coarse_gather(ends, o, payload),
                           lambda: rc.coarse_gather_plain(ends, o, payload)),
     }
-    m = int(torch.count_nonzero(torch.diff(ends, prepend=ends.new_full(
-        (1,), -1))))
+    m = survivors(ends)
     bounds = {
-        # ends and the survivors' 5 columns read; counts and finalized
-        # read and written; the 5 columns of acc written (every slot
-        # finalizes in one round over the whole pool)
-        "ends_merge_round": least_time(4 * N + 20 * m + 16 * N + 20 * N,
-                                       search_ops(N, N)),
+        "ends_merge_round": ends_round_bound(N, m, 5),
         # the keys are cs / ends (extra_in), the ancestor is computed
         "cumsum_merge": gather_bound(N, m, 5, search_ops(N, N),
                                      extra_in=4 * N, compacted=False),
@@ -893,21 +1049,78 @@ def phase_merge_times(dev, card: str, state, r):
                                       extra_in=4 * N + 4 * o.shape[0],
                                       compacted=False),
     }
-    setups = {"ends_merge_round": fresh_state}
+    setups = {"ends_merge_round": fresh(N, 5)}
     errs, times = {}, {}
     for name, (kern, plain) in pairs.items():
         got, want = kern(), plain()
         assert_equal(f"{name} at the main path's inputs", got, want)
         errs[name] = max_abs_err(got, want)
-        setup = setups.get(name)
-        p1, k1, k2, p2 = (device_ms(plain, setup=setup),
-                          device_ms(kern, setup=setup),
-                          device_ms(kern, setup=setup),
-                          device_ms(plain, setup=setup))
-        times[name] = (min(k1, k2), min(p1, p2))
-        log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{p1:.4f}/{p2:.4f} ms (device time, mean of {REPS}, {card}); "
-            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+        times[name] = time_pair(name, kern, plain, card, bounds[name],
+                                setup=setups.get(name),
+                                before=ONE_THREAD_PER_SLOT_MS.get(name))
+
+    # the same round at 8 columns: every 32-byte row of acc written whole,
+    # where at 5 columns the memory system must complete each row's sector
+    x8 = randn(np.random.default_rng(seed + 3), (N, 8), dev)
+    time_pair("ends_merge_round at 8 columns (whole acc rows)",
+              ends_round(rpb.ends_merge_round, ends, x8),
+              ends_round(rpb.ends_merge_round_plain, ends, x8), card,
+              ends_round_bound(N, m, 8), setup=fresh(N, 8))
+    del x8
+
+    # expand's bracket and window (a gallop in device memory where keys
+    # repeat) on the same raw ends: cumsum_merge's function with integer
+    # keys, the design the merge path was held against
+    time_pair("expand on the raw ends (bracket and window)",
+              lambda: rp4.expand(ends, payload),
+              lambda: rp4.expand_plain(ends, payload), card,
+              gather_bound(N, m, 5, search_ops(N, N), extra_in=4 * N,
+                           compacted=False))
+
+    # the router's bank tree: 5 means and 25 covariance entries a row
+    w, rb = rig.edge_weights("heavy", N_BANK, seed)
+    e_bank = ends_from_weights(torch.from_numpy(w).to(dev),
+                               torch.tensor(rb, device=dev))
+    x_bank = torch.from_numpy(rig.edge_payload(30, N_BANK, seed)).to(dev).T
+    x_bank = x_bank.contiguous()
+    kern = ends_round(rpb.ends_merge_round, e_bank, x_bank)
+    plain = ends_round(rpb.ends_merge_round_plain, e_bank, x_bank)
+    assert_equal("ends_merge_round at the bank tree", kern(), plain())
+    time_pair(f"ends_merge_round bank tree n={N_BANK} nx=30 "
+              f"({survivors(e_bank)} survivors)", kern, plain, card,
+              ends_round_bound(N_BANK, survivors(e_bank), 30),
+              setup=fresh(N_BANK, 30))
+    del e_bank, x_bank
+
+    # the heavy edge case at 2^24
+    n = N_MANY_TILES
+    w, rh = rig.edge_weights("heavy", n, seed)
+    w = torch.from_numpy(w).to(dev)
+    rh = torch.tensor(rh, device=dev)
+    e_big = ends_from_weights(w, rh)
+    cs_big = rp3.normalized_cumsum(w)
+    p_big = torch.from_numpy(rig.edge_payload(5, n, seed)).to(dev)
+    x_big = p_big.T.contiguous()
+    m_big = survivors(e_big)
+    kern = ends_round(rpb.ends_merge_round, e_big, x_big)
+    plain = ends_round(rpb.ends_merge_round_plain, e_big, x_big)
+    assert_equal("ends_merge_round at 2^24", kern(), plain())
+    # 10 calls: each keeps a fresh 640 MB state
+    time_pair(f"ends_merge_round heavy n={n} nx=5 ({m_big} survivors)",
+              kern, plain, card, ends_round_bound(n, m_big, 5),
+              setup=fresh(n, 5), reps=10)
+
+    def kern_b():
+        return rp3.cumsum_merge(cs_big, p_big, rh)
+
+    def plain_b():
+        return rp3.cumsum_merge_plain(cs_big, p_big, rh)
+
+    assert_equal("cumsum_merge at 2^24", kern_b(), plain_b())
+    time_pair(f"cumsum_merge heavy n={n} rows=5 ({m_big} survivors)",
+              kern_b, plain_b, card,
+              gather_bound(n, m_big, 5, search_ops(n, n), extra_in=4 * n,
+                           compacted=False), reps=10)
     return errs, times, bounds
 
 
@@ -921,19 +1134,11 @@ def busy_ms(prof) -> tuple[float, float, int, dict[str, float]]:
     if not evs:
         return 0.0, 0.0, 0, {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
     per_name: dict[str, float] = {}
     for e in evs:
         per_name[e.name] = (per_name.get(e.name, 0.0)
                             + (e.time_range.end - e.time_range.start) / 1e3)
-    return (busy / 1e3, (max(e for _, e in spans) - spans[0][0]) / 1e3,
+    return (union_ms(spans), (max(e for _, e in spans) - spans[0][0]) / 1e3,
             len(evs), per_name)
 
 
@@ -1221,13 +1426,18 @@ def main() -> int:
         phase_edge_cases(dev, args.seed)
         phase_compact_repeats(dev, args.seed, card)
     errs.update(phase_merge_kernels_vs_plain(dev, args.seed))
+    with watchdog(WATCHDOG_S, "the edge cases and ring feeds of the merge "
+                              "kernels"):
+        edge_errs = phase_merge_edge_cases(dev, args.seed)
+    for name, err in edge_errs.items():
+        errs[name] = max(errs[name], err)
     phase_fixture(dev)
     phase_fixture_gsukf(dev)
     main_errs, times, metric, bounds = phase_main_path(dev, args.seed, card)
     state, r = phase_flat_pf(dev, args.seed, card)
     phase_router_routes(dev, args.seed)
-    merge_errs, merge_times, merge_bounds = phase_merge_times(dev, card,
-                                                              state, r)
+    merge_errs, merge_times, merge_bounds = phase_merge_times(
+        dev, card, state, r, args.seed)
     phase_profile(dev, args.seed, card)
     v2_err = phase_v2_path(dev, args.seed, card)
     errs["expand"] = max(errs["expand"], v2_err)

@@ -1,5 +1,4 @@
-// Binary search shared by the resample kernels (resample_block.cu,
-// resample_coarse.cu, resample_expand.cu, resample_merge.cu).
+// Binary search shared by resample_coarse.cu and resample_expand.cu.
 #pragma once
 
 namespace gst {

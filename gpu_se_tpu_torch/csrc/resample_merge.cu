@@ -9,44 +9,107 @@
 //                                            float32 cumsum (ascending)
 //   anc[i] = min(c, n - 1),  out[:, i] = payload[:, anc[i]]
 // The division must round as IEEE `/` does, as the plain version's
-// (arange + r) / n_t with a device tensor n_t does: build without
-// --use_fast_math (nvcc's default -prec-div=true), or the two part at
-// ties.
+// (arange + r) / n_t with a device tensor n_t does: it is __fdiv_rn, in
+// the diagonal search, the per-thread search and the walk alike (one
+// formula, PositionTarget), and the build takes no --use_fast_math, or
+// the two part at ties.
 //
 // The copy is exact. The TPU kernels gather by `acc + onehot @ parts` on
 // the matrix unit, which turns -0.0 into +0.0 and spreads a non-finite
 // entry over every slot whose window holds it; the XLA path, which is
 // the reference semantics, copies, and so does this kernel.
 //
-// Bound on the H100: one thread per slot, ~log2(n) dependent loads of
-// `cs` (4 MB at 2^20, resident in the 50 MB L2), then `rows` coalesced
-// reads and writes (ancestors are sorted, so neighbouring slots read
-// neighbouring columns). The TPU kernels' window walk, resumable window
+// Bound on the H100: memory. At the flat path's input (n = 2^20, 5 rows,
+// m survivors) it reads the 4 MB of `cs` and the survivors' 20m bytes of
+// payload and writes 24 bytes per slot (5 rows and the ancestor): ~31 MB,
+// 0.009 ms at 3.35 TB/s. The TPU kernels' window walk, resumable window
 // start and DMA double buffering exist because the TPU grid is
-// sequential and its VMEM window bounded; none of that carries over.
+// sequential and its VMEM window bounded; here the slots' positions are
+// merged with `cs` by the merge path (merge_path.cuh: each block 4096
+// items of keys and slots, 16 a thread, each key read once, coalesced,
+// each slot's count in shared memory; 2048 items a block, as
+// ends_merge_round takes, read 16% slower at the flat path's input). The payload layout (rows, n) is already
+// coalesced across slots, so each thread then takes an aligned quad of
+// slots, loads all their rows first and stores one float4 per row and
+// one int4 of ancestors (scalar stores at the block's ragged ends and
+// wherever n % 4 != 0, since row k starts at payload + k n). The
+// registers are held to kMinBlocks blocks per SM: unbounded the kernel
+// took 80 registers, three blocks fit on an SM and a 2^20 merge ran in
+// almost three waves.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "lower_bound.cuh"
+#include "merge_path.cuh"
 
 namespace {
 
-__global__ void cumsum_merge_kernel(const float* __restrict__ cs,
-                                    const float* __restrict__ payload,
-                                    int rows, const float* __restrict__ r,
-                                    int n, float* __restrict__ out,
-                                    int* __restrict__ anc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float u = (static_cast<float>(i) + __ldg(r)) / static_cast<float>(n);
-  const int c = gst::lower_bound(cs, n, u);
-  const int j = c < n ? c : n - 1;
-  anc[i] = j;
-  for (int k = 0; k < rows; ++k) {
-    out[static_cast<size_t>(k) * n + i] =
-        __ldg(payload + static_cast<size_t>(k) * n + j);
+using gst::kMergeThreads;
+
+constexpr int kItems = 16;    // merged items a thread walks
+using Shared = gst::MergeShared<kItems, float>;
+constexpr int kRowGroup = 8;  // rows loaded before their stores
+constexpr int kMinBlocks = 4;  // blocks per SM the registers are held to
+
+// the target of slot i: its stratified position (i + r) / n
+struct PositionTarget {
+  float r;
+  float n;
+  __device__ __forceinline__ float operator()(int i) const {
+    return __fdiv_rn(static_cast<float>(i) + r, n);
+  }
+};
+
+__global__ void __launch_bounds__(kMergeThreads, kMinBlocks)
+cumsum_merge_kernel(const float* __restrict__ cs,
+                    const float* __restrict__ payload, int rows,
+                    const float* __restrict__ r, int n,
+                    float* __restrict__ out, int* __restrict__ anc) {
+  __shared__ Shared sh;
+  const gst::MergeSlots slots = gst::merge_block(
+      cs, n, n, PositionTarget{__ldg(r), static_cast<float>(n)}, 0, sh);
+  const int j0 = slots.j0;
+  const int j1 = slots.j1;
+  const int* cnt = sh.counts;
+  auto ancestor = [&](int i) { return min(cnt[i - j0], n - 1); };
+
+  int q0, q1;
+  gst::aligned_quads(j0, j1, (n & 3) == 0, q0, q1);
+  for (int q = threadIdx.x; q < (q1 - q0) >> 2; q += blockDim.x) {
+    const int i = q0 + 4 * q;
+    const int a[4] = {ancestor(i), ancestor(i + 1), ancestor(i + 2),
+                      ancestor(i + 3)};
+    *reinterpret_cast<int4*>(anc + i) = make_int4(a[0], a[1], a[2], a[3]);
+    for (int k0 = 0; k0 < rows; k0 += kRowGroup) {
+      float v[kRowGroup][4];
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        if (k0 + g < rows) {
+          const float* row = payload + static_cast<size_t>(k0 + g) * n;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[g][u] = __ldg(row + a[u]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kRowGroup; ++g) {
+        if (k0 + g < rows) {
+          *reinterpret_cast<float4*>(out + static_cast<size_t>(k0 + g) * n +
+                                     i) =
+              make_float4(v[g][0], v[g][1], v[g][2], v[g][3]);
+        }
+      }
+    }
+  }
+  const int n_head = q0 - j0;
+  for (int t = threadIdx.x; t < n_head + (j1 - q1); t += blockDim.x) {
+    const int i = t < n_head ? j0 + t : q1 + (t - n_head);
+    const int a = ancestor(i);
+    anc[i] = a;
+    for (int k = 0; k < rows; ++k) {
+      out[static_cast<size_t>(k) * n + i] =
+          __ldg(payload + static_cast<size_t>(k) * n + a);
+    }
   }
 }
 
@@ -54,14 +117,21 @@ __global__ void cumsum_merge_kernel(const float* __restrict__ cs,
 
 extern "C" {
 
+// the threads of a merge-path block; the merged items one thread walks
+int gst_merge_threads() { return kMergeThreads; }
+int gst_cumsum_merge_thread_items() { return kItems; }
+
 // cs (n,) float32 ascending; payload (rows, n) float32 row-major; r a
-// pointer to one float32 on the device; out (rows, n), anc (n,) int32.
+// pointer to one float32 on the device; out (rows, n), anc (n,) int32,
+// both 16-byte aligned.
 int gst_cumsum_merge(const float* cs, const float* payload, int rows,
                      const float* r, int n, float* out, int* anc,
                      void* stream) {
   if (n > 0) {
-    const int threads = 256;
-    cumsum_merge_kernel<<<(n + threads - 1) / threads, threads, 0,
+    const long long items = 2LL * n;
+    const int grid =
+        static_cast<int>((items + Shared::kBlock - 1) / Shared::kBlock);
+    cumsum_merge_kernel<<<grid, kMergeThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         cs, payload, rows, r, n, out, anc);
   }

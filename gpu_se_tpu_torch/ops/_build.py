@@ -36,9 +36,14 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # the entries of a compact tile; the keys an expand block stages at most
+    # the entries of a compact tile; the keys an expand block stages at most;
+    # the threads of a merge-path block; the merged items one of them walks
+    # in ends_merge_round and in cumsum_merge
     "gst_compact_tile": [],
     "gst_expand_max_stage": [],
+    "gst_merge_threads": [],
+    "gst_ends_merge_thread_items": [],
+    "gst_cumsum_merge_thread_items": [],
     # n -> 64-bit scratch words (the ticket and one word per tile)
     "gst_compact_words": [_I],
     # ends, payload, rows, n, words, c_keys, c_payload, c_idx, count, stream

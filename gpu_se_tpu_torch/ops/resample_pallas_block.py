@@ -103,6 +103,8 @@ def ends_merge_round(ends_block: torch.Tensor, parts_block: torch.Tensor,
                          f"{tuple(acc.shape)}, finalized "
                          f"{tuple(finalized.shape)} vs {nx} columns")
     slot0 = int(slot0)
+    if slot0 < -2**31 or slot0 + n_local > 2**31 - 1:
+        raise ValueError(f"slots [{slot0}, {slot0 + n_local}) leave int32")
     if not _build.on_cuda(counts):
         return ends_merge_round_plain(ends_block, parts_block, slot0, counts,
                                       acc, finalized)

@@ -3,9 +3,9 @@
 ``scripts/make_torch_parity_fixture.py`` writes the fixtures from these
 inputs, and the tests and ``chip_smoke.py`` recompute the noise and
 inputs the fixtures do not store. It also holds the edge cases
-that the CPU tests, the card tests and ``chip_smoke.py`` put ``compact``
-and ``expand`` through. The module imports numpy only, so the card, which
-has no JAX, can import it.
+that the CPU tests, the card tests and ``chip_smoke.py`` put ``compact``,
+``expand``, ``ends_merge_round`` and ``cumsum_merge`` through. The module
+imports numpy only, so the card, which has no JAX, can import it.
 """
 from __future__ import annotations
 
@@ -117,3 +117,55 @@ def edge_payload(rows: int, n: int, seed: int = 0):
     """``(rows, n)`` float32 in [-0.5, 0.5)."""
     rng = np.random.default_rng([seed, rows, n])
     return rng.random((rows, n), dtype=np.float32) - np.float32(0.5)
+
+
+# ----------------------------------------------------------------------
+# edge cases of the merge-path kernels: ends_merge_round, cumsum_merge
+# ----------------------------------------------------------------------
+MERGE_THREADS = 256                 # csrc/merge_path.cuh kMergeThreads
+ENDS_MERGE_ITEMS = 8                # csrc/resample_block.cu kItems
+CUMSUM_MERGE_ITEMS = 16             # csrc/resample_merge.cu kItems
+# one key; two; around ends_merge_round's 2048-item block; odd; one past
+# 2^20; 2^24
+MERGE_NS = (1, 2, 2047, 2048, 2049, 5001, 2**20 + 1, 2**24)
+MERGE_NX = (1, 5, 8, 30, 32)        # ends_merge_round payload columns
+MERGE_ROWS = (1, 5, 8)              # cumsum_merge payload rows
+# ring feeds of ends_merge_round: (family, n, source blocks, shards). The
+# blocks and the shards split n unevenly, so n_blk != n_local; the exact
+# ends of "all_survive" put whole blocks below and above a shard's slots
+RING_FEEDS = (("all_survive", 4096, 3, 4), ("heavy", 5001, 5, 3),
+              ("one_survivor", 4096, 4, 3), ("all_survive", 2**20 + 1, 3, 4),
+              ("heavy", 2**20, 8, 3))
+
+
+def _merge_cases(widths, max_n):
+    """``(family, n, width)``: every family at every ``MERGE_NS`` (up to
+    ``max_n``) with the widths in turn (5 for the heavy family and 1 for
+    the others from 2^20 on, to bound the memory), and every width at
+    n = 5001."""
+    cases = []
+    for k, n in enumerate(MERGE_NS):
+        for f, family in enumerate(EDGE_FAMILIES):
+            if n < 2**20:
+                width = widths[(k + f) % len(widths)]
+            else:
+                width = 5 if family == "heavy" else 1
+            cases.append((family, n, width))
+    cases += [("heavy", 5001, w) for w in widths
+              if ("heavy", 5001, w) not in cases]
+    return [c for c in cases if max_n is None or c[1] <= max_n]
+
+
+def ends_merge_cases(max_n: int | None = None):
+    """``(family, n, nx)`` cases of ``ends_merge_round``."""
+    return _merge_cases(MERGE_NX, max_n)
+
+
+def cumsum_merge_cases(max_n: int | None = None):
+    """``(family, n, rows)`` cases of ``cumsum_merge``."""
+    return _merge_cases(MERGE_ROWS, max_n)
+
+
+def ring_bounds(n: int, parts: int) -> list[int]:
+    """``parts + 1`` ascending bounds that split ``[0, n)``."""
+    return [n * k // parts for k in range(parts + 1)]

@@ -98,7 +98,8 @@ def test_library_name_tracks_headers(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.name for p in _build.headers()] == ["lower_bound.cuh"]
+    assert [p.name for p in _build.headers()] == [
+        "lower_bound.cuh", "merge_path.cuh", "warp_stage.cuh"]
     before = _build.library_path()
     header = csrc / "lower_bound.cuh"
     header.write_text(header.read_text() + "// edited\n")
@@ -599,3 +600,101 @@ def test_expand_without_src_idx_on_card(cuda, n):
         for block in (3, 1024):
             for g, p in zip(rp4.expand(keys, payload, block=block), want):
                 assert torch.equal(g, p)
+
+
+# ----------------------------------------------------------------------
+# ends_merge_round and cumsum_merge (the merge path of merge_path.cuh) on
+# the edge cases and ring feeds shared with the CPU tests
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+def test_merge_constants_equal_the_model_on_card(cuda):
+    """The block and thread sizes that the CPU tests' numpy model of the
+    merge path takes are the ones the kernels were built with."""
+    lib = _build.load_library()
+    assert lib.gst_merge_threads() == rig.MERGE_THREADS
+    assert lib.gst_ends_merge_thread_items() == rig.ENDS_MERGE_ITEMS
+    assert lib.gst_cumsum_merge_thread_items() == rig.CUMSUM_MERGE_ITEMS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", rig.ends_merge_cases(),
+                         ids=[rig.edge_id(c) for c in rig.ends_merge_cases()])
+def test_ends_merge_round_edge_cases_on_card(cuda, case):
+    family, n, nx = case
+    ends, x = _edge_inputs(case, cuda)
+    parts = x.T.contiguous()
+    launches = rpb.ends_merge_round.launches
+    got = rpb.ends_merge_round(ends, parts, 0,
+                               *rpb.block_resample_state(n, nx, cuda))
+    want = rpb.ends_merge_round_plain(ends, parts, 0,
+                                      *rpb.block_resample_state(n, nx, cuda))
+    for g, wt in zip(got, want):
+        assert torch.equal(g, wt)
+    assert rpb.ends_merge_round.launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", rig.cumsum_merge_cases(),
+                         ids=[rig.edge_id(c) for c in rig.cumsum_merge_cases()])
+def test_cumsum_merge_edge_cases_on_card(cuda, case):
+    family, n, rows = case
+    w, r = rig.edge_weights(family, n)
+    cs = rp3.normalized_cumsum(torch.from_numpy(w).to(cuda))
+    payload = torch.from_numpy(rig.edge_payload(rows, n)).to(cuda)
+    r = torch.tensor(r, device=cuda)
+    launches = rp3.cumsum_merge.launches
+    for g, wt in zip(rp3.cumsum_merge(cs, payload, r),
+                     rp3.cumsum_merge_plain(cs, payload, r)):
+        assert torch.equal(g, wt)
+    assert rp3.cumsum_merge.launches == launches + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feed", rig.RING_FEEDS,
+                         ids=[rig.edge_id(f) for f in rig.RING_FEEDS])
+def test_ends_merge_ring_feeds_on_card(cuda, feed):
+    """Every shard fed every source block in ascending order, blocks and
+    shards of unequal sizes: each round's state equals the plain round's
+    on the same state, and the shards together equal one round over the
+    whole pool."""
+    family, n, blocks, shards = feed
+    ends, x = _edge_inputs((family, n, 5), cuda)
+    parts = x.T.contiguous()
+    whole = rpb.ends_merge_round_plain(ends, parts, 0,
+                                       *rpb.block_resample_state(n, 5, cuda))
+    src, dst = rig.ring_bounds(n, blocks), rig.ring_bounds(n, shards)
+    for s0, s1 in zip(dst, dst[1:]):
+        state = rpb.block_resample_state(s1 - s0, 5, cuda)
+        for b0, b1 in zip(src, src[1:]):
+            want = rpb.ends_merge_round_plain(
+                ends[b0:b1], parts[b0:b1], s0, *[t.clone() for t in state])
+            state = rpb.ends_merge_round(ends[b0:b1], parts[b0:b1], s0,
+                                         *state)
+            for g, wt in zip(state, want):
+                assert torch.equal(g, wt)
+        for g, wt in zip(state, whole):
+            assert torch.equal(g, wt[s0:s1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nx", [5, 30])
+def test_ends_merge_round_on_unaligned_state_on_card(cuda, nx):
+    """State views that start 4 bytes past a 16-byte boundary take the
+    scalar path; the columns past nx and the rows outside the view keep
+    their bits."""
+    n = 5001
+    ends, x = _edge_inputs(("heavy", n, nx), cuda)
+    parts = x.T.contiguous()
+    cols = rpb._cols_pad(nx)
+    base = [torch.full((n + 1, 1), 7, dtype=torch.int32, device=cuda),
+            torch.full((n + 1, cols), -2.5, device=cuda),
+            torch.zeros((n + 1, 1), device=cuda)]
+    base[2][::3] = 1.0                       # some slots already final
+    plain = [t.clone() for t in base]
+    got = rpb.ends_merge_round(ends, parts, 3, *[t[1:] for t in base])
+    want = rpb.ends_merge_round_plain(ends, parts, 3,
+                                      *[t[1:] for t in plain])
+    for g, wt in zip(got, want):
+        assert torch.equal(g, wt)
+    for g, wt in zip(base, plain):
+        assert torch.equal(g, wt)

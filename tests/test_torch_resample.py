@@ -20,6 +20,7 @@ from gpu_se_tpu.filters.resampling import sorted_row_gather as j_gather
 from gpu_se_tpu.ops import resample_pallas4 as jrp4
 from gpu_se_tpu.ops.resample_coarse import ends_from_weights as j_ends
 from gpu_se_tpu.ops.resample_coarse import indices_from_ends as j_indices
+from gpu_se_tpu_torch import rig
 from gpu_se_tpu_torch.filters import resampling as trs
 from gpu_se_tpu_torch.ops import resample_pallas4 as trp4
 from gpu_se_tpu_torch.ops.resample_coarse import blocked_cummax, blocked_cumsum
@@ -58,6 +59,20 @@ def test_ends_from_weights_vs_jax(n, family):
     assert np.abs(diff).max() <= 1
     assert np.count_nonzero(diff) <= 4 * n // 1000
     assert np.all(np.diff(got) >= 0) and got[-1] == n - 1
+
+
+@pytest.mark.parametrize("n", [2**23 + 1, 2**24])
+def test_ends_of_equal_weights_tie_as_the_reference_past_2_to_23(n):
+    """Past 2^23 float32 cannot hold ``n cs_k - r`` with a fractional
+    ``r``: at 2^24 the ``ends`` of equal weights keep 16,777,215 entries,
+    not all. The reference's ``ends_from_weights`` ties the same way,
+    entry for entry, so this is a float32 limit the two share."""
+    w, r = rig.edge_weights("all_survive", n)
+    want = _jax_ends(w, r)
+    got = t_ends(torch.from_numpy(w), torch.tensor(r)).numpy()
+    np.testing.assert_array_equal(got, want)
+    kept = int(np.count_nonzero(np.diff(got, prepend=np.int32(-1)) > 0))
+    assert kept == (n if n < 2**24 else n - 1)
 
 
 @pytest.mark.parametrize("n", [1, 1000, 1024, 5000, 8192])
