@@ -19,8 +19,11 @@ Phases, each of which raises on failure:
    merge path's 2048-item block; 1 to 32 columns, 1 to 8 rows) and
    ``ends_merge_round`` on ``rig``'s ring feeds (unequal source blocks
    and shards, blocks wholly below and above a shard, rounds over state
-   that is already part-finalized), each round against the plain round.
-   A watchdog ends the run if these cases hang;
+   that is already part-finalized), each round against the plain round;
+   ``coarse_gather`` on its edge cases of ``rig`` (the same families; n
+   from 128 to 2^24, the one survivor's last chunk holding every key
+   from the survivor on; 1 to 8 rows). A watchdog ends the run if these
+   cases hang;
 4. the CUDA tiled and flat steps against the committed reference step
    (``tests/data/torch_parity_step.npz``);
 5. the tiled main path: the tiled particle-filter step of ``bench.py``'s
@@ -41,11 +44,11 @@ Phases, each of which raises on failure:
    (compact + expand);
 8. the merge and coarse kernels timed against their plain versions at
    the flat main path's inputs; ``ends_merge_round`` also at 8 columns
-   there, at the router's 2^18 bank tree (30 columns), and both merge
-   kernels on the heavy edge case at 2^24, each time beside its bound
-   and, at the flat path's
-   input, beside the time of the one-thread-per-slot kernels the merge
-   path replaced;
+   there, at the router's 2^18 bank tree (30 columns), all three on the
+   heavy edge case at 2^24 and ``coarse_gather`` also on the one-survivor
+   and all-survive cases at 2^24 (a long key range against none), each
+   time beside its bound and, at the flat path's input, beside the time
+   of the one-thread-per-slot kernel each replaced;
 9. the flat step's stage times and, per route, ``torch.profiler`` over
    chained steps (device ops per step, busy share, the kernels with most
    device time);
@@ -135,10 +138,11 @@ V2_GEOMETRIES = ((1024, 1024), (2048, 2048), (512, 512), (2048, 1024),
 # the published peaks of one H100 SXM (bytes/s, float32 operations/s)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
-# device ms of the one-thread-per-slot merge kernels that the merge path
-# replaced, at the flat path's input (this script's profiler reading on an
-# NVIDIA H100 80GB HBM3 at 700.00 W)
-ONE_THREAD_PER_SLOT_MS = {"ends_merge_round": 0.0665, "cumsum_merge": 0.0372}
+# device ms of the one-thread-per-slot first designs of the merge and
+# coarse kernels, at the flat path's input (this script's profiler reading
+# on an NVIDIA H100 80GB HBM3 at 700.00 W)
+ONE_THREAD_PER_SLOT_MS = {"ends_merge_round": 0.0665, "cumsum_merge": 0.0372,
+                          "coarse_gather": 0.0227}
 # rows of a 4096-particle step that may differ from the reference's: one
 # per `ends` entry a cumsum tie moves (tests/test_torch_kernels.py)
 STEP_TIE_ROWS = 8
@@ -388,6 +392,9 @@ def phase_build() -> None:
     assert lib.gst_merge_threads() == rig.MERGE_THREADS
     assert lib.gst_ends_merge_thread_items() == rig.ENDS_MERGE_ITEMS
     assert lib.gst_cumsum_merge_thread_items() == rig.CUMSUM_MERGE_ITEMS
+    assert lib.gst_coarse_chunks() == rig.COARSE_CHUNKS
+    assert lib.gst_coarse_stage() == rig.COARSE_STAGE
+    assert rc.BLOCK == rig.COARSE_CHUNK
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(_build.library_path())}")
 
@@ -464,12 +471,14 @@ def phase_edge_cases(dev, seed: int) -> None:
 
 
 def phase_merge_edge_cases(dev, seed: int) -> dict[str, float]:
-    """``ends_merge_round`` and ``cumsum_merge`` against their plain
-    versions on their shared edge cases, and ``ends_merge_round`` on the
-    ring feeds: every shard fed every source block in ascending order,
-    each round against the plain round on the same state, the shards
-    together against one round over the whole pool."""
-    errs = {"ends_merge_round": 0.0, "cumsum_merge": 0.0}
+    """``ends_merge_round``, ``cumsum_merge`` and ``coarse_gather`` against
+    their plain versions on their shared edge cases, and
+    ``ends_merge_round`` on the ring feeds: every shard fed every source
+    block in ascending order, each round against the plain round on the
+    same state, the shards together against one round over the whole
+    pool."""
+    errs = {"ends_merge_round": 0.0, "cumsum_merge": 0.0,
+            "coarse_gather": 0.0}
     for family, n, nx in rig.ends_merge_cases():
         ends, x = edge_inputs((family, n, nx), dev, seed)
         parts = x.T.contiguous()
@@ -498,6 +507,20 @@ def phase_merge_edge_cases(dev, seed: int) -> dict[str, float]:
         del got, want, payload
         torch.cuda.synchronize()
         log(f"edge case {name} == plain")
+    for case in rig.coarse_cases():
+        ends, payload = edge_inputs(case, dev, seed)
+        o = rc.chunk_boundaries(ends, case[1])
+        got = rc.coarse_gather(ends, o, payload)
+        want = rc.coarse_gather_plain(ends, o, payload)
+        name = f"coarse_gather {rig.edge_id(case)}"
+        assert_equal(name, got, want)
+        errs["coarse_gather"] = max(errs["coarse_gather"],
+                                    max_abs_err(got, want))
+        longest = int(torch.diff(o).max())
+        del got, want, payload
+        torch.cuda.synchronize()
+        log(f"edge case {name} == plain (longest chunk window {longest} "
+            f"keys)")
     for family, n, blocks, shards in rig.RING_FEEDS:
         ends, x = edge_inputs((family, n, 5), dev, seed)
         parts = x.T.contiguous()
@@ -1014,8 +1037,9 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
     call gets a fresh zeroed state, as ``systematic_resample_ends`` makes
     one, all made before the timed calls. Then ``ends_merge_round`` at 8
     columns on the same ``ends``, at the router's 2^18 bank tree (30
-    columns, heavy-tailed weights), and both merge kernels on the heavy
-    edge case at 2^24 (5 columns or rows)."""
+    columns, heavy-tailed weights), all three kernels on the heavy edge
+    case at 2^24 (5 columns or rows), and ``coarse_gather`` on the
+    one-survivor and all-survive cases at 2^24."""
     parts = state.particles.contiguous()
     ends = ends_from_weights(state.weights, r)
     cs = rp3.normalized_cumsum(state.weights)
@@ -1121,6 +1145,36 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
               kern_b, plain_b, card,
               gather_bound(n, m_big, 5, search_ops(n, n), extra_in=4 * n,
                            compacted=False), reps=10)
+    del cs_big, x_big
+
+    # coarse_gather at 2^24: heavy tails, then one survivor (the last
+    # chunk's window holds every key from the survivor on) against every
+    # entry surviving (exact ends, one key a slot)
+    coarse_ms = {}
+    for family in ("heavy", "one_survivor", "all_survive"):
+        if family != "heavy":
+            e_big, p_big = edge_inputs((family, n, 5), dev, seed)
+        o_big = rc.chunk_boundaries(e_big, n)
+        m_c = survivors(e_big)
+
+        def kern_c(e=e_big, ob=o_big, p=p_big):
+            return rc.coarse_gather(e, ob, p)
+
+        def plain_c(e=e_big, ob=o_big, p=p_big):
+            return rc.coarse_gather_plain(e, ob, p)
+
+        assert_equal(f"coarse_gather {family} at 2^24", kern_c(), plain_c())
+        coarse_ms[family] = time_pair(
+            f"coarse_gather {family} n={n} rows=5 ({m_c} survivors, longest "
+            f"chunk window {int(torch.diff(o_big).max())} keys)",
+            kern_c, plain_c, card,
+            gather_bound(n, m_c, 5, search_ops(n, rc.BLOCK),
+                         extra_in=4 * n + 4 * o_big.shape[0],
+                         compacted=False),
+            reps=10)[0]
+    log(f"coarse_gather at 2^24: one survivor / all survive "
+        f"{coarse_ms['one_survivor'] / coarse_ms['all_survive']:.3f} "
+        f"({card})")
     return errs, times, bounds
 
 
@@ -1427,7 +1481,7 @@ def main() -> int:
         phase_compact_repeats(dev, args.seed, card)
     errs.update(phase_merge_kernels_vs_plain(dev, args.seed))
     with watchdog(WATCHDOG_S, "the edge cases and ring feeds of the merge "
-                              "kernels"):
+                              "and coarse kernels"):
         edge_errs = phase_merge_edge_cases(dev, args.seed)
     for name, err in edge_errs.items():
         errs[name] = max(errs[name], err)

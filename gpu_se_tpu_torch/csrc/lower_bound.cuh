@@ -1,4 +1,4 @@
-// Binary search shared by resample_coarse.cu and resample_expand.cu.
+// Binary search of resample_expand.cu.
 #pragma once
 
 namespace gst {

@@ -35,10 +35,16 @@
 //   No thread searches device memory, no block waits on another: no
 //   atomics, no look-back.
 // The kernels' epilogues then read the counts in slot order and do their
-// own coalesced stores.
+// own coalesced stores (B's is gather_store).
+//
+// coarse_gather (resample_coarse.cu) knows its blocks' splits from its
+// chunk boundaries and needs no diagonal search: it stages its own
+// segments and takes merge_walk and gather_store alone.
 #pragma once
 
 #include <cuda_pipeline_primitives.h>
+
+#include <cstddef>
 
 #include "warp_stage.cuh"
 
@@ -87,6 +93,41 @@ __device__ __forceinline__ int warp_merge_split(const Key* __restrict__ keys,
   return lo + __popc(__ballot_sync(kFull, before));
 }
 
+// One thread's items [dt, end) of a block's merge of the staged keys
+// sk[0, nk) with the slots j0 + [0, ns): a binary search in shared memory
+// for the thread's own split of the block's diagonal, then a serial walk
+// that sets counts[s] = base + #{t < nk : sk[t] < target(j0 + s)} for
+// each of its slots.
+template <typename Key, typename Target>
+__device__ __forceinline__ void merge_walk(const Key* sk, int nk, int ns,
+                                           int j0, const Target& target,
+                                           int base, int dt, int end,
+                                           int* counts) {
+  int lo = max(0, dt - ns);
+  int hi = min(dt, nk);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sk[mid] < target(j0 + dt - 1 - mid)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  int ki = lo;       // keys taken
+  int sj = dt - lo;  // slots taken
+  using T = decltype(target(0));
+  T t = sj < ns ? target(j0 + sj) : T();
+  for (int item = dt; item < end; ++item) {
+    if (sj < ns && !(ki < nk && sk[ki] < t)) {
+      counts[sj] = base + ki;
+      ++sj;
+      if (sj < ns) t = target(j0 + sj);
+    } else {
+      ++ki;
+    }
+  }
+}
+
 // Block blockIdx.x's share of the merge: for each of its slots s,
 // sh.counts[s - j0] = base + #{k : keys[k] < target(s)}. Called by the
 // whole block of kMergeThreads, with blockIdx.x * D < n_keys + n_slots;
@@ -115,35 +156,11 @@ __device__ __forceinline__ MergeSlots merge_block(
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
-  const Key* sk = sh.keys + mis;  // sk[t] = keys[i0 + t]
-
-  // this thread's items [dt, end) of the block's diagonal
+  // this thread's items [dt, dt + Items) of the block's diagonal
   const int nb = nk + ns;
   const int dt = min(static_cast<int>(threadIdx.x) * Items, nb);
-  const int end = min(dt + Items, nb);
-  int lo = max(0, dt - ns);
-  int hi = min(dt, nk);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sk[mid] < target(j0 + dt - 1 - mid)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  int ki = lo;       // keys taken
-  int sj = dt - lo;  // slots taken
-  using T = decltype(target(0));
-  T t = sj < ns ? target(j0 + sj) : T();
-  for (int item = dt; item < end; ++item) {
-    if (sj < ns && !(ki < nk && sk[ki] < t)) {
-      sh.counts[sj] = base + i0 + ki;
-      ++sj;
-      if (sj < ns) t = target(j0 + sj);
-    } else {
-      ++ki;
-    }
-  }
+  merge_walk(sh.keys + mis, nk, ns, j0, target, base + i0, dt,
+             min(dt + Items, nb), sh.counts);
   __syncthreads();
   return {j0, j0 + ns};
 }
@@ -158,6 +175,60 @@ __device__ __forceinline__ void aligned_quads(int j0, int j1, bool wide,
   if (wide) {
     q0 = min((j0 + 3) & ~3, j1);
     q1 = max(q0, j1 & ~3);
+  }
+}
+
+// The epilogue of cumsum_merge and coarse_gather, by the whole block:
+// for each slot i in [j0, j1), with c = cnt[i - j0] in shared memory,
+// anc[i] = min(c, n - 1) and out[:, i] = payload[:, anc[i]], payload and
+// out (rows, n) row-major. Each thread takes an aligned quad of slots,
+// loads all its rows in groups of kGatherRows first, then stores a float4
+// a row and an int4 of ancestors; scalar stores at the ragged ends and
+// wherever n % 4 != 0, since row k starts at out + k n.
+constexpr int kGatherRows = 8;
+
+__device__ __forceinline__ void gather_store(const int* cnt, int j0, int j1,
+                                             const float* __restrict__ payload,
+                                             int rows, int n,
+                                             float* __restrict__ out,
+                                             int* __restrict__ anc) {
+  auto ancestor = [&](int i) { return min(cnt[i - j0], n - 1); };
+  int q0, q1;
+  aligned_quads(j0, j1, (n & 3) == 0, q0, q1);
+  for (int q = threadIdx.x; q < (q1 - q0) >> 2; q += blockDim.x) {
+    const int i = q0 + 4 * q;
+    const int a[4] = {ancestor(i), ancestor(i + 1), ancestor(i + 2),
+                      ancestor(i + 3)};
+    *reinterpret_cast<int4*>(anc + i) = make_int4(a[0], a[1], a[2], a[3]);
+    for (int k0 = 0; k0 < rows; k0 += kGatherRows) {
+      float v[kGatherRows][4];
+#pragma unroll
+      for (int g = 0; g < kGatherRows; ++g) {
+        if (k0 + g < rows) {
+          const float* row = payload + static_cast<size_t>(k0 + g) * n;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[g][u] = __ldg(row + a[u]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kGatherRows; ++g) {
+        if (k0 + g < rows) {
+          *reinterpret_cast<float4*>(out + static_cast<size_t>(k0 + g) * n +
+                                     i) =
+              make_float4(v[g][0], v[g][1], v[g][2], v[g][3]);
+        }
+      }
+    }
+  }
+  const int n_head = q0 - j0;
+  for (int t = threadIdx.x; t < n_head + (j1 - q1); t += blockDim.x) {
+    const int i = t < n_head ? j0 + t : q1 + (t - n_head);
+    const int a = ancestor(i);
+    anc[i] = a;
+    for (int k = 0; k < rows; ++k) {
+      out[static_cast<size_t>(k) * n + i] =
+          __ldg(payload + static_cast<size_t>(k) * n + a);
+    }
   }
 }
 

@@ -28,18 +28,16 @@
 // merged with `cs` by the merge path (merge_path.cuh: each block 4096
 // items of keys and slots, 16 a thread, each key read once, coalesced,
 // each slot's count in shared memory; 2048 items a block, as
-// ends_merge_round takes, read 16% slower at the flat path's input). The payload layout (rows, n) is already
-// coalesced across slots, so each thread then takes an aligned quad of
-// slots, loads all their rows first and stores one float4 per row and
-// one int4 of ancestors (scalar stores at the block's ragged ends and
-// wherever n % 4 != 0, since row k starts at payload + k n). The
+// ends_merge_round takes, read 16% slower at the flat path's input). The
+// payload layout (rows, n) is already coalesced across slots, so the
+// epilogue (gst::gather_store, shared with coarse_gather) has each thread
+// take an aligned quad of slots, load all their rows first and store one
+// float4 per row and one int4 of ancestors. The
 // registers are held to kMinBlocks blocks per SM: unbounded the kernel
 // took 80 registers, three blocks fit on an SM and a 2^20 merge ran in
 // almost three waves.
 
 #include <cuda_runtime.h>
-
-#include <cstddef>
 
 #include "merge_path.cuh"
 
@@ -49,7 +47,6 @@ using gst::kMergeThreads;
 
 constexpr int kItems = 16;    // merged items a thread walks
 using Shared = gst::MergeShared<kItems, float>;
-constexpr int kRowGroup = 8;  // rows loaded before their stores
 constexpr int kMinBlocks = 4;  // blocks per SM the registers are held to
 
 // the target of slot i: its stratified position (i + r) / n
@@ -69,48 +66,8 @@ cumsum_merge_kernel(const float* __restrict__ cs,
   __shared__ Shared sh;
   const gst::MergeSlots slots = gst::merge_block(
       cs, n, n, PositionTarget{__ldg(r), static_cast<float>(n)}, 0, sh);
-  const int j0 = slots.j0;
-  const int j1 = slots.j1;
-  const int* cnt = sh.counts;
-  auto ancestor = [&](int i) { return min(cnt[i - j0], n - 1); };
-
-  int q0, q1;
-  gst::aligned_quads(j0, j1, (n & 3) == 0, q0, q1);
-  for (int q = threadIdx.x; q < (q1 - q0) >> 2; q += blockDim.x) {
-    const int i = q0 + 4 * q;
-    const int a[4] = {ancestor(i), ancestor(i + 1), ancestor(i + 2),
-                      ancestor(i + 3)};
-    *reinterpret_cast<int4*>(anc + i) = make_int4(a[0], a[1], a[2], a[3]);
-    for (int k0 = 0; k0 < rows; k0 += kRowGroup) {
-      float v[kRowGroup][4];
-#pragma unroll
-      for (int g = 0; g < kRowGroup; ++g) {
-        if (k0 + g < rows) {
-          const float* row = payload + static_cast<size_t>(k0 + g) * n;
-#pragma unroll
-          for (int u = 0; u < 4; ++u) v[g][u] = __ldg(row + a[u]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kRowGroup; ++g) {
-        if (k0 + g < rows) {
-          *reinterpret_cast<float4*>(out + static_cast<size_t>(k0 + g) * n +
-                                     i) =
-              make_float4(v[g][0], v[g][1], v[g][2], v[g][3]);
-        }
-      }
-    }
-  }
-  const int n_head = q0 - j0;
-  for (int t = threadIdx.x; t < n_head + (j1 - q1); t += blockDim.x) {
-    const int i = t < n_head ? j0 + t : q1 + (t - n_head);
-    const int a = ancestor(i);
-    anc[i] = a;
-    for (int k = 0; k < rows; ++k) {
-      out[static_cast<size_t>(k) * n + i] =
-          __ldg(payload + static_cast<size_t>(k) * n + a);
-    }
-  }
+  gst::gather_store(sh.counts, slots.j0, slots.j1, payload, rows, n, out,
+                    anc);
 }
 
 }  // namespace

@@ -38,12 +38,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # the entries of a compact tile; the keys an expand block stages at most;
     # the threads of a merge-path block; the merged items one of them walks
-    # in ends_merge_round and in cumsum_merge
+    # in ends_merge_round and in cumsum_merge; the chunks a coarse_gather
+    # block takes and the keys it stages at most
     "gst_compact_tile": [],
     "gst_expand_max_stage": [],
     "gst_merge_threads": [],
     "gst_ends_merge_thread_items": [],
     "gst_cumsum_merge_thread_items": [],
+    "gst_coarse_chunks": [],
+    "gst_coarse_stage": [],
     # n -> 64-bit scratch words (the ticket and one word per tile)
     "gst_compact_words": [_I],
     # ends, payload, rows, n, words, c_keys, c_payload, c_idx, count, stream

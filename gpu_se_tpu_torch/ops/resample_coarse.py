@@ -12,14 +12,26 @@ boundary. Everything downstream of ``ends`` is exact integer logic.
 
 The kernel, :func:`coarse_gather` (``csrc/resample_coarse.cu``),
 replaces the file's Pallas ``_kernel``: output chunk ``c`` of
-:data:`BLOCK` slots searches only the source rows between the chunk
-boundaries ``o_c = #{k : ends_k < c * BLOCK}`` and ``o_{c+1}``. The TPU
-kernel's window is fixed, so the reference falls back to the XLA path
-when a chunk's span overflows it; the CUDA kernel's window is the whole
-span, so it takes every input, and :func:`coarse_systematic_resample`
-has no fallback. The wrapper takes its plain version for CPU tensors and
-launches the kernel for CUDA tensors; ``coarse_gather.launches`` counts
-launches.
+:data:`BLOCK` slots draws only from the source rows between the chunk
+boundaries ``o_c = #{k : ends_k < c * BLOCK}`` and ``o_{c+1}``. Each
+CUDA block takes a run of chunks, knows its keys from two entries of
+``o``, stages them and merges them with its slots; a block with more
+keys than it stages searches device memory instead. The TPU kernel's
+window is fixed, so the reference falls back to the XLA path when a
+chunk's span overflows it; the CUDA kernel takes every input, and
+:func:`coarse_systematic_resample` has no fallback. The wrapper takes
+its plain version for CPU tensors and launches the kernel for CUDA
+tensors; ``coarse_gather.launches`` counts launches.
+
+Reference names. The reference module's kernel entry and the function
+that takes its place here (no alias: their arguments differ):
+
+- ``coarse_kernel`` -> :func:`coarse_gather`: ``(ends, o, payload)``
+  with ``ends`` int32 and ``payload`` the ``(rows, n)`` float32 rows,
+  where the reference takes ``(p8t, o, n, interpret)`` with ``p8t`` the
+  packed ``(8, n)`` rows and ``ends`` as float32 in row 6. Returns
+  ``(out (rows, n), anc)`` where the reference returns ``(out_t (8, n),
+  anc)``.
 """
 from __future__ import annotations
 
@@ -114,8 +126,9 @@ def coarse_gather_plain(ends, o, payload):
 
 
 def coarse_gather(ends: torch.Tensor, o: torch.Tensor, payload: torch.Tensor):
-    """Ancestors of every slot by a search of its chunk's window of
-    ``ends``, and the payload's columns gathered by them.
+    """Ancestors of every slot by a merge of its chunk's window of
+    ``ends`` with the chunk's slots, and the payload's columns gathered
+    by them.
 
     ``ends`` int32 ``(n,)`` non-decreasing, ``n`` a multiple of
     :data:`BLOCK`; ``o`` int32 ``(n / BLOCK + 1,)`` its

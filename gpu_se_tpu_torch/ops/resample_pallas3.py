@@ -14,6 +14,14 @@ own reference kernel given the same ``cs`` and ``r``.
 The wrapper takes its plain version for CPU tensors and launches the
 kernel for CUDA tensors, with no fallback from one to the other;
 ``cumsum_merge.launches`` counts launches.
+
+Reference names. The reference module's entry point and the function
+that takes its place here:
+
+- ``pallas_systematic_resample_pipelined`` ->
+  :func:`systematic_resample_pipelined`: ``(particles, weights, r,
+  block_slots)`` in the reference's order; no ``window`` or
+  ``interpret``. Aliased.
 """
 from __future__ import annotations
 
@@ -110,3 +118,8 @@ def systematic_resample_pipelined(particles: torch.Tensor,
     """The v3 entry, with the reference's default geometry: returns
     ``(resampled (n, nx) float32, ancestors (n,) int32)``."""
     return merge_entry(particles, weights, r, block_slots)
+
+
+# the reference's name: a call with its positional arguments gives the
+# same result here
+pallas_systematic_resample_pipelined = systematic_resample_pipelined

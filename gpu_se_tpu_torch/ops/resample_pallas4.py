@@ -35,6 +35,22 @@ bounded TPU window can overflow on heavy-tailed weights; :func:`expand`
 goes on searching in device memory past its window, so both routes are
 exact everywhere and the port needs no such switch. :func:`expand` on
 the uncompacted ``ends`` is the direct route.
+
+Reference names. The reference module's entry points and the functions
+that take their place here (no alias: their arguments differ):
+
+- ``pallas_systematic_resample_tiled`` -> :func:`systematic_resample_tiled`:
+  ``(particles, weights, r)`` as in the reference; there is no ``block``
+  and no ``interpret`` (the kernels have no window and no interpret
+  mode), and any ``n`` and ``nx`` are taken.
+- ``resample_tiled_core`` -> :func:`resample_core`: ``(x, ends)`` with
+  ``x`` the SoA ``(rows, n)`` float32 payload, where the reference takes
+  the ``(T, 1024)`` lane tiles with index and ``ends`` rows, plus ``n``,
+  ``block``, ``rows`` and ``compact_tps``; returns ``(x[:, anc], anc)``
+  where the reference returns the resampled tiles alone.
+- ``pallas_systematic_resample_bank`` -> :func:`systematic_resample_bank`:
+  ``(means, covs, weights, r)`` as in the reference, without ``block``
+  and ``interpret``.
 """
 from __future__ import annotations
 

@@ -21,6 +21,22 @@ payload (the GSUKF bank: 5 means + 25 covariance entries).
 The wrapper takes its plain version for CPU tensors and launches the
 kernel for CUDA tensors, with no fallback from one to the other;
 ``ends_merge_round.launches`` counts launches.
+
+Reference names. The reference module's entry points and the functions
+that take their place here:
+
+- ``pallas_block_resample_round`` -> :func:`block_resample_round`:
+  ``(ends_block, parts_block, slot0, counts, acc, finalized,
+  block_slots)`` in the reference's order; no ``window`` or
+  ``interpret``. The state is updated in place and returned. Aliased.
+- ``pallas_block_resample_round_pipelined`` ->
+  :func:`block_resample_round_pipelined`: the same, with the default
+  ``block_slots=256``; no ``gather_precision`` (the kernel copies).
+  Aliased.
+- ``pallas_systematic_resample_ends`` -> :func:`systematic_resample_ends`:
+  ``(particles, weights, r)`` alike, then ``pipelined, block_slots``
+  where the reference takes ``block_slots, window, interpret,
+  pipelined``; so no alias.
 """
 from __future__ import annotations
 
@@ -162,6 +178,12 @@ def block_resample_round_pipelined(ends_block, parts_block, slot0, counts,
     the same kernel."""
     return _round(ends_block, parts_block, slot0, counts, acc, finalized,
                   block_slots)
+
+
+# the reference's names: a call with its positional arguments gives the
+# same result here
+pallas_block_resample_round = block_resample_round
+pallas_block_resample_round_pipelined = block_resample_round_pipelined
 
 
 def systematic_resample_ends(particles: torch.Tensor, weights: torch.Tensor,

@@ -4,7 +4,8 @@
 inputs, and the tests and ``chip_smoke.py`` recompute the noise and
 inputs the fixtures do not store. It also holds the edge cases
 that the CPU tests, the card tests and ``chip_smoke.py`` put ``compact``,
-``expand``, ``ends_merge_round`` and ``cumsum_merge`` through. The module
+``expand``, ``ends_merge_round``, ``cumsum_merge`` and ``coarse_gather``
+through. The module
 imports numpy only, so the card, which has no JAX, can import it.
 """
 from __future__ import annotations
@@ -138,21 +139,21 @@ RING_FEEDS = (("all_survive", 4096, 3, 4), ("heavy", 5001, 5, 3),
               ("heavy", 2**20, 8, 3))
 
 
-def _merge_cases(widths, max_n):
-    """``(family, n, width)``: every family at every ``MERGE_NS`` (up to
+def _merge_cases(widths, max_n, ns=MERGE_NS, n_all=5001):
+    """``(family, n, width)``: every family at every ``ns`` (up to
     ``max_n``) with the widths in turn (5 for the heavy family and 1 for
     the others from 2^20 on, to bound the memory), and every width at
-    n = 5001."""
+    n = ``n_all``."""
     cases = []
-    for k, n in enumerate(MERGE_NS):
+    for k, n in enumerate(ns):
         for f, family in enumerate(EDGE_FAMILIES):
             if n < 2**20:
                 width = widths[(k + f) % len(widths)]
             else:
                 width = 5 if family == "heavy" else 1
             cases.append((family, n, width))
-    cases += [("heavy", 5001, w) for w in widths
-              if ("heavy", 5001, w) not in cases]
+    cases += [("heavy", n_all, w) for w in widths
+              if ("heavy", n_all, w) not in cases]
     return [c for c in cases if max_n is None or c[1] <= max_n]
 
 
@@ -164,6 +165,24 @@ def ends_merge_cases(max_n: int | None = None):
 def cumsum_merge_cases(max_n: int | None = None):
     """``(family, n, rows)`` cases of ``cumsum_merge``."""
     return _merge_cases(MERGE_ROWS, max_n)
+
+
+# ----------------------------------------------------------------------
+# edge cases of coarse_gather
+# ----------------------------------------------------------------------
+COARSE_CHUNK = 128                  # csrc/resample_coarse.cu kChunk
+COARSE_CHUNKS = 8                   # csrc/resample_coarse.cu kChunks
+COARSE_STAGE = 4096                 # csrc/resample_coarse.cu kStage
+# one chunk; two; one block; two blocks; four; 2^20; 2^24 (multiples of
+# the chunk only)
+COARSE_NS = (128, 256, 2048, 4096, 2**13, 2**20, 2**24)
+COARSE_ROWS = (1, 5, 6, 8)          # payload rows
+
+
+def coarse_cases():
+    """``(family, n, rows)`` cases of ``coarse_gather``: every row count
+    at n = 4096."""
+    return _merge_cases(COARSE_ROWS, None, COARSE_NS, 4096)
 
 
 def ring_bounds(n: int, parts: int) -> list[int]:

@@ -1,9 +1,14 @@
 """The port stands alone: it imports with JAX blocked and names neither
-JAX nor the reference package in its sources."""
+JAX nor the reference package in its sources. Its package surface
+exports the reference's names, and each ops module's docstring maps the
+reference module's entry names to the port's functions."""
+import importlib
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "gpu_se_tpu_torch"
@@ -40,6 +45,23 @@ def test_imports_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_rig_imports_numpy_only():
+    """``rig`` loads neither torch nor the port's modules: the package
+    exports its Gaussian mixtures on first use."""
+    code = (
+        "import sys\n"
+        "import gpu_se_tpu_torch.rig\n"
+        "loaded = [k for k in sys.modules if k.split('.')[0] == 'torch'"
+        " or k.startswith('gpu_se_tpu_torch.')]\n"
+        "assert loaded == ['gpu_se_tpu_torch.rig'], loaded\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_sources_name_no_jax_or_reference_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|gpu_se_tpu)\b",
                          re.MULTILINE)
@@ -47,3 +69,54 @@ def test_sources_name_no_jax_or_reference_package():
         text = path.read_text()
         assert not pattern.search(text), path
         assert "gpu_se_tpu." not in text.replace("gpu_se_tpu_torch", ""), path
+
+
+# ----------------------------------------------------------------------
+# the package surface against the reference's
+# ----------------------------------------------------------------------
+EXPORTS = [("gpu_se_tpu_torch", name, "gpu_se_tpu_torch.distributions."
+            "gaussian_sum")
+           for name in ("GaussianSum", "MultivariateGaussianSum",
+                        "DeterministicGaussianSum")]
+EXPORTS += [("gpu_se_tpu_torch.models", name,
+             "gpu_se_tpu_torch.models.bioreactor")
+            for name in ("homeostatic_des", "high_n_des", "static_outputs",
+                         "all_outputs", "euler_step")]
+# the ops modules whose docstrings map the reference's entry names
+OPS_MAPS = ("resample_pallas4", "resample_pallas_block", "resample_pallas3",
+            "resample_pallas", "resample_coarse")
+# one entry of a map: the reference's name, the port's function and the
+# text up to the next entry
+MAP_ENTRY = re.compile(r"^- ``(\w+)`` ->\s+:func:`(\w+)`(.*?)(?=^- |\Z)",
+                       re.MULTILINE | re.DOTALL)
+
+
+@pytest.mark.parametrize("package, name, module", EXPORTS,
+                         ids=[f"{p}.{n}" for p, n, _ in EXPORTS])
+def test_package_exports_the_reference_names(package, name, module):
+    pkg = importlib.import_module(package)
+    assert name in pkg.__all__
+    assert getattr(pkg, name) is getattr(importlib.import_module(module),
+                                         name)
+    ref = importlib.import_module(package.replace("gpu_se_tpu_torch",
+                                                  "gpu_se_tpu"))
+    assert name in ref.__all__
+
+
+@pytest.mark.parametrize("module", OPS_MAPS)
+def test_ops_docstring_maps_reference_names(module):
+    """Each name the map lists is an entry of the reference module and
+    maps to a function of the port's; an entry that says "Aliased." has
+    the reference's name bound to that function, and only such an entry
+    has it."""
+    port = importlib.import_module(f"gpu_se_tpu_torch.ops.{module}")
+    ref = importlib.import_module(f"gpu_se_tpu.ops.{module}")
+    entries = MAP_ENTRY.findall(port.__doc__)
+    assert entries, f"{module}: no map in the docstring"
+    for ref_name, port_name, text in entries:
+        assert callable(getattr(ref, ref_name)), ref_name
+        assert callable(getattr(port, port_name)), port_name
+        if "Aliased." in text:
+            assert getattr(port, ref_name) is getattr(port, port_name)
+        else:
+            assert not hasattr(port, ref_name), ref_name

@@ -698,3 +698,35 @@ def test_ends_merge_round_on_unaligned_state_on_card(cuda, nx):
         assert torch.equal(g, wt)
     for g, wt in zip(base, plain):
         assert torch.equal(g, wt)
+
+
+# ----------------------------------------------------------------------
+# coarse_gather (chunk boundaries as merge-path splits) on its edge cases
+# shared with the CPU tests' numpy model
+# ----------------------------------------------------------------------
+@pytest.mark.gpu
+def test_coarse_constants_equal_the_model_on_card(cuda):
+    """The chunks a block takes and the keys it stages, which the CPU
+    tests' numpy model of ``coarse_gather`` takes, are the library's."""
+    lib = _build.load_library()
+    assert lib.gst_coarse_chunks() == rig.COARSE_CHUNKS
+    assert lib.gst_coarse_stage() == rig.COARSE_STAGE
+    assert rc.BLOCK == rig.COARSE_CHUNK
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", rig.coarse_cases(),
+                         ids=[rig.edge_id(c) for c in rig.coarse_cases()])
+def test_coarse_gather_edge_cases_on_card(cuda, case):
+    """Bit-equal to the plain version on every case, 2^24 included: the
+    one survivor's long last chunk, blocks without keys, exact ``ends``
+    where every entry survives."""
+    family, n, rows = case
+    ends, payload = _edge_inputs(case, cuda)
+    o = rc.chunk_boundaries(ends, n)
+    launches = rc.coarse_gather.launches
+    for g, wt in zip(rc.coarse_gather(ends, o, payload),
+                     rc.coarse_gather_plain(ends, o, payload)):
+        assert torch.equal(g, wt)
+    torch.cuda.synchronize()
+    assert rc.coarse_gather.launches == launches + 1

@@ -1,4 +1,5 @@
-"""The merge path of ``ends_merge_round`` and ``cumsum_merge`` on the CPU.
+"""The merge path of ``ends_merge_round`` and ``cumsum_merge``, and the
+blocks of ``coarse_gather``, on the CPU.
 
 * A numpy model that follows the control flow of
   ``gpu_se_tpu_torch/csrc/merge_path.cuh`` (each block's two diagonal
@@ -12,6 +13,15 @@
   block and items a thread are ``rig.MERGE_THREADS``,
   ``rig.ENDS_MERGE_ITEMS`` and ``rig.CUMSUM_MERGE_ITEMS``, which a
   ``gpu`` test holds to the library's.
+* A numpy model of ``gpu_se_tpu_torch/csrc/resample_coarse.cu``: blocks
+  of ``rig.COARSE_CHUNKS`` chunks, their keys from the chunk boundaries
+  ``o``, every stride-th key staged (at most ``rig.COARSE_STAGE``; every
+  key when the range fits), the same walk, and each slot's gap between
+  two samples searched in device memory, all threads of a batch of
+  blocks at once; it gives
+  ``searchsorted(ends, i, "left")`` for every slot of every ``rig`` case
+  up to 2^24. Its constants are held to ``gst_coarse_chunks()`` and
+  ``gst_coarse_stage()`` by a ``gpu`` test.
 * The plain versions against the reference's Pallas kernels in
   interpret mode: ``ends_merge_round_plain`` through both round entries
   at ring geometries (``n_blk != n_local``, source blocks wholly below
@@ -32,6 +42,7 @@ import torch
 from gpu_se_tpu.ops import resample_pallas3 as jrp3
 from gpu_se_tpu.ops import resample_pallas_block as jrb
 from gpu_se_tpu_torch import rig
+from gpu_se_tpu_torch.ops import resample_coarse as trc
 from gpu_se_tpu_torch.ops import resample_pallas3 as trp3
 from gpu_se_tpu_torch.ops import resample_pallas_block as trb
 from gpu_se_tpu_torch.ops.resample_coarse import ends_from_weights as t_ends
@@ -257,6 +268,196 @@ def test_a_block_takes_its_diagonal_in_four_warp_rounds_at_2_to_20():
         split, rounds = warp_merge_split(keys, targets, d)
         assert split == np.count_nonzero(merged[:d] & 1)  # keys are odd
         assert rounds <= 4
+
+
+# ----------------------------------------------------------------------
+# the model of coarse_gather (csrc/resample_coarse.cu), all threads of a
+# batch of blocks at once
+# ----------------------------------------------------------------------
+C_CHUNK = rig.COARSE_CHUNK
+C_SLOTS = C_CHUNK * rig.COARSE_CHUNKS      # a block's slots
+C_STAGE = rig.COARSE_STAGE                 # the keys a block stages
+C_THREAD_SLOTS = C_SLOTS // THREADS        # the slots a thread refines
+C_BATCH = 1024                             # blocks the model takes at once
+C_PAIRS = sorted({(f, n) for f, n, _ in rig.coarse_cases()})
+C_PAIR_IDS = [f"{f}-{n}" for f, n in C_PAIRS]
+# the items a thread walked at most, over the tests of this module
+C_ITEMS = collections.Counter()
+
+
+def coarse_walk(ends, i0, stride, nq, j0, ns, counts):
+    """The staged walk of a batch of blocks: the samples ``sk[q] =
+    ends[i0 + q stride]``, ``q < nq`` (every key when ``stride`` is 1),
+    merged with the slots ``[j0, j0 + ns)``, each thread's items found by
+    its binary search of the block's diagonal, then walked. Sets
+    ``counts[j0 + s]`` to the count of samples before the slot."""
+    assert (nq <= C_STAGE).all()                     # the stage holds them
+    t = np.arange(THREADS)[None, :]
+    i0, stride, nq, j0, ns = (v[:, None] for v in (i0, stride, nq, j0, ns))
+    last = ends.shape[0] - 1
+
+    def sk(q):
+        return ends[np.minimum(i0 + q * stride, last)]
+
+    nb = nq + ns
+    items = -(-nb // THREADS)
+    dt = np.minimum(t * items, nb)
+    end = np.minimum(dt + items, nb)
+    lo, hi = np.maximum(0, dt - ns), np.minimum(dt, nq)
+    while (lo < hi).any():
+        act = lo < hi
+        mid = (lo + hi) >> 1
+        less = sk(np.where(act, mid, 0)) < j0 + dt - 1 - mid
+        lo = np.where(act & less, mid + 1, lo)
+        hi = np.where(act & ~less, mid, hi)
+    ki, sj = lo, dt - lo
+    for step in range(int(items.max())):
+        act = dt + step < end
+        key_first = (ki < nq) & (sk(ki) < j0 + sj)
+        slot = act & (sj < ns) & ~key_first
+        pos = (j0 + sj)[slot]
+        assert (counts[pos] == -1).all()                # one writer a slot
+        assert np.unique(pos).shape == pos.shape
+        counts[pos] = ki[slot]
+        sj = sj + slot
+        ki = ki + (act & ~slot)
+    C_ITEMS["max"] = max(C_ITEMS["max"], int(items.max()))
+
+
+def coarse_refine(ends, i0, nk, stride, j0, ns, counts):
+    """``refine_counts`` for a batch of blocks: each thread's slots ``t +
+    u THREADS`` searched in their gap between two samples (empty at
+    stride 1), in device memory, all in step. Returns the rounds of loads
+    of each thread."""
+    s = (np.arange(THREADS)[:, None]
+         + THREADS * np.arange(C_THREAD_SLOTS)[None, :])[None]
+    i0, nk, stride, j0, ns = (v[:, None, None] for v in
+                              (i0, nk, stride, j0, ns))
+    ok = s < ns
+    q = np.where(ok, counts[np.where(ok, j0 + s, 0)], 0)
+    lo = np.where(q == 0, i0, i0 + (q - 1) * stride + 1)
+    length = np.where(q == 0, 0, np.minimum(i0 + q * stride, i0 + nk) - lo)
+    assert (length < stride).all()
+    rounds = np.zeros(lo.shape[:2], dtype=np.int64)
+    while (length > 0).any():
+        act = length > 0
+        rounds += act.any(axis=2)
+        half = length >> 1
+        mid = lo + half
+        less = act & (ends[np.where(act, mid, 0)] < j0 + s)
+        lo = np.where(less, mid + 1, lo)
+        length = np.where(less, length - half - 1,
+                          np.where(act, half, length))
+    counts[(j0 + s)[ok]] = lo[ok]
+    return rounds
+
+
+def coarse_model(ends, o):
+    """``coarse_gather_kernel``'s counts ``#{k : ends_k < i}`` of every
+    slot (before the clamp to ``n - 1``), block by block as the kernel's
+    grid takes them; the most rounds of loads a thread of a sampled block
+    made; and the largest stride."""
+    n = ends.shape[0]
+    chunks = n // C_CHUNK
+    o = o.astype(np.int64)
+    counts = np.full(n, -1, dtype=np.int64)
+    c0 = np.arange(0, chunks, rig.COARSE_CHUNKS)
+    c1 = np.minimum(c0 + rig.COARSE_CHUNKS, chunks)
+    i0, j0, ns = o[c0], c0 * C_CHUNK, (c1 - c0) * C_CHUNK
+    nk = np.maximum(o[c1] - i0, 0)
+    stride = np.maximum(1, -(-nk // C_STAGE))
+    nq = -(-nk // stride)
+    SEEN["coarse sampled"] += int((stride > 1).sum())
+    SEEN["coarse no keys"] += int((nk == 0).sum())
+    SEEN["coarse staged"] += int(((stride == 1) & (nk > 0)).sum())
+    rounds = 0
+    # each block's counts lie in [i0, i0 + nk]: its ancestors in the payload
+    # columns the staged epilogue copies
+    lo_of, hi_of = np.repeat(i0, ns), np.repeat(i0 + nk, ns)
+    for b in range(0, c0.shape[0], C_BATCH):
+        sl = slice(b, b + C_BATCH)
+        coarse_walk(ends, i0[sl], stride[sl], nq[sl], j0[sl], ns[sl], counts)
+        rounds = max(rounds, int(coarse_refine(
+            ends, i0[sl], nk[sl], stride[sl], j0[sl], ns[sl], counts).max()))
+    assert (counts >= 0).all()                          # every slot written
+    assert ((lo_of <= counts) & (counts <= hi_of)).all()
+    return counts, rounds, int(stride.max())
+
+
+def _coarse_ends(family, n):
+    ends = _ends(family, n)
+    o = trc.chunk_boundaries(torch.from_numpy(ends), n).numpy()
+    return ends, o
+
+
+@pytest.mark.parametrize("family, n", C_PAIRS, ids=C_PAIR_IDS)
+def test_coarse_model_equals_searchsorted(family, n):
+    """Every ``rig`` case of ``coarse_gather``, 2^24 included: every slot
+    of every block written once, equal to ``searchsorted(left)``; a
+    thread walks at most ``(stage + slots) / threads`` items, and a thread
+    of a sampled block makes at most ``log2(stride) + 1`` rounds of
+    loads."""
+    ends, o = _coarse_ends(family, n)
+    counts, rounds, stride = coarse_model(ends, o)
+    np.testing.assert_array_equal(
+        counts, np.searchsorted(ends, np.arange(n, dtype=np.int32), "left"))
+    assert C_ITEMS["max"] <= -(-(C_STAGE + C_SLOTS) // THREADS)
+    assert rounds <= int(stride - 1).bit_length()
+
+
+def test_coarse_one_survivor_samples_its_long_chunk():
+    """One survivor at 2^20: the last chunk's window holds every key from
+    the survivor on. Its block stages every stride-th key and makes no
+    load in device memory past its samples, where a walk would read the
+    whole range; the blocks before it hold no keys."""
+    SEEN.clear()
+    n = 2**20
+    ends, o = _coarse_ends("one_survivor", n)
+    assert o[-1] - o[-2] > C_STAGE
+    counts, rounds, _ = coarse_model(ends, o)
+    np.testing.assert_array_equal(
+        counts, np.searchsorted(ends, np.arange(n), "left"))
+    assert SEEN["coarse sampled"] == 1 and SEEN["coarse no keys"] > 0
+    assert rounds == 0
+
+
+@pytest.mark.parametrize("kind", ["all_in_last_chunk", "all_below_zero",
+                                  "ties", "runs_across_sampled_blocks"])
+def test_coarse_model_on_shaped_ends(kind):
+    """Windows the rig's families do not make: every key in the last
+    chunk (its window holds all n keys), every key below slot 0 (every
+    window empty, counts n), keys equal to slots, and long runs of
+    distinct keys that put sampled blocks, whose gaps hold keys both
+    below and above a slot, beside staged ones."""
+    SEEN.clear()
+    n = -(-4 * C_STAGE // C_SLOTS) * C_SLOTS      # whole blocks
+    if kind == "all_in_last_chunk":
+        ends = np.full(n, n - 1, dtype=np.int32)
+    elif kind == "all_below_zero":
+        ends = np.full(n, -1, dtype=np.int32)
+    elif kind == "ties":
+        ends = np.repeat(np.arange(0, n, 3, dtype=np.int32), 3)[:n]
+    else:
+        # block 0: twice the stage of keys spread over its slots (stride
+        # 3, gaps with keys on both sides of a slot); one run of equal
+        # keys past the stage in block 2; the rest spread over all slots
+        rng = np.random.default_rng(5)
+        dense = rng.integers(0, C_SLOTS, 2 * C_STAGE + 1)
+        run = np.full(C_STAGE + 1, 2 * C_SLOTS + 7)
+        rest = rng.integers(0, n, n - dense.shape[0] - run.shape[0])
+        ends = np.sort(np.concatenate([dense, run, rest])).astype(np.int32)
+    assert ends.shape == (n,)
+    o = trc.chunk_boundaries(torch.from_numpy(ends), n).numpy()
+    counts, rounds, _ = coarse_model(ends, o)
+    np.testing.assert_array_equal(
+        counts, np.searchsorted(ends, np.arange(n), "left"))
+    if kind == "all_in_last_chunk":
+        assert SEEN["coarse sampled"] == 1
+    if kind == "all_below_zero":
+        assert SEEN["coarse no keys"] == n // C_SLOTS
+    if kind == "runs_across_sampled_blocks":
+        assert SEEN["coarse sampled"] >= 2 and SEEN["coarse staged"] >= 1
+        assert rounds >= 1
 
 
 # ----------------------------------------------------------------------
