@@ -64,7 +64,33 @@ Phases, each of which raises on failure:
     covariances must stay exactly symmetric, one step must equal the
     same step through the plain resample bit for bit; stage times and a
     ``torch.profiler`` busy share. Its fixture
-    (``tests/data/torch_parity_gsukf.npz``) is checked in phase 4.
+    (``tests/data/torch_parity_gsukf.npz``) is checked in phase 4;
+12. the control slice, on the canonical rig's MPC at dt_control = 0.1
+    (P = 2999, M = 1999: the reference's ``int(300 // 0.1)``; a QP of
+    n = 4000, m = 2), one host setup for (a) to (c): the ``Simulation``
+    of (b), built first, and the same MPC on the CPU, its setup time
+    printed. Between the phases the MPC is ``reset``:
+    (a) the no-noise closed loop of
+    ``results/bioreactor_closedloop/no_noise.py`` to t = 5: ``K.step``
+    latency (median and spread), solves per second, CUDA-event ms per
+    solve, iterations per solve, the steps accepted as near-solved and
+    those that raised ``ValueError`` (a stall at max_iter, which the
+    reference's float32 ADMM shows on 8 of these 49 steps on the CPU:
+    they fall back as in
+    ``results/bioreactor_closedloop/mpc_run_seq.py``; the first step
+    raising, or more than 8, fails the run), five solves under
+    ``torch.profiler``, and the first step against the same MPC on the
+    CPU (within 1e-4);
+    (b) ``Simulation`` with the particle filter at 2^20 particles to
+    t = 5, (c) ``make_scan_loop`` at the same size from (b)'s initial
+    state, (d) ``Simulation`` with the GSUKF at 2^18 Gaussians to t = 2
+    (its own setup): ``compact`` and ``expand`` must launch once per
+    control event (the resample), every output must be finite; ms per
+    control event, ``mpc_frac`` and ``performance``; (e) ``MPC.step`` on
+    the first QP of the no-noise loop at P = 300, M = 200 on the card
+    and on the CPU (status, iterations and residuals from
+    ``last_solution``, control), the CPU's control held to
+    ``u = [-0.028, -0.1]`` and the card's, when it solves, to the CPU's.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel's ``launches`` is the sum over the paths. Every
@@ -78,8 +104,9 @@ a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
-``nvidia-smi`` line, the two metric JSON lines (tiled PF, GSUKF) and,
-last, ``{"ok": true, "device": {...}}``. Run from the repository root::
+``nvidia-smi`` line, the four metric JSON lines (tiled PF, GSUKF, MPC,
+closed loop) and, last, ``{"ok": true, "device": {...}}``. Run from the
+repository root::
 
     python3 chip_smoke.py [--seed 0]
 """
@@ -88,6 +115,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -116,9 +144,19 @@ from gpu_se_tpu_torch.ops import resample_pallas4 as rp4  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas_block as rpb  # noqa: E402
 from gpu_se_tpu_torch.ops.resample_coarse import ends_from_weights  # noqa: E402
 from gpu_se_tpu_torch.pytree import tree_flatten  # noqa: E402
+from gpu_se_tpu_torch.control import qp as cqp  # noqa: E402
+from gpu_se_tpu_torch.models import Bioreactor  # noqa: E402
+from gpu_se_tpu_torch.sim import harness  # noqa: E402
+from gpu_se_tpu_torch.sim import loop as sim_loop  # noqa: E402
 
 N = 2**20
 N_BANK = 2**18
+DT_CONTROL = 0.1          # the closed loop's canonical rig (P=2999, M=1999)
+LOOP_END = 5              # the closed-loop phases' horizon
+GSUKF_LOOP_END = 2
+# steps of (a)'s loop on which the reference's own float32 ADMM raises
+# ValueError on the CPU (scripts/mpc_loop_status.py --package jax: 8 of 49)
+REF_RAISED = 8
 STEPS = 50
 ROUTE_STEPS = 10
 GSUKF_STEPS = 30
@@ -1468,6 +1506,294 @@ def phase_gsukf(dev, seed: int, card: str):
     return metric
 
 
+# ----------------------------------------------------------------------
+# the control slice: the MPC, the closed loop and the on-device loop
+# ----------------------------------------------------------------------
+def control_setup(dev, seed: int, card: str):
+    """The canonical rig at dt_control = 0.1 as ``Simulation`` builds it
+    for phase (b), with the PF at 2^20 on ``dev``: its plant, linear
+    model and MPC (float64 host setup, device constants on ``dev``) serve
+    phases (a) to (c). Also the same MPC with its constants on the CPU,
+    for the first step's comparison in (a): its ``get_parts`` time is the
+    host setup alone."""
+    t0 = time.perf_counter()
+    s = harness.Simulation(N_particles=N, dt_control=DT_CONTROL,
+                           dt_predict=DT_CONTROL, end_time=LOOP_END, pf=True,
+                           seed=seed, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    K_cpu = harness.get_parts(dt_control=DT_CONTROL, device="cpu")[2]
+    setup_s = time.perf_counter() - t0
+    K = s.K
+    log(f"control setup: MPC P={K.P}, M={K.M} (QP n={K.qp.n}, m={K.qp.m}); "
+        f"Simulation with the PF at n={N} built in {build_s:.2f} s (device "
+        f"constants on {K.qp.device}); the host setup alone (get_parts, "
+        f"device constants on the CPU) {setup_s:.2f} s ({card})")
+    # the reference's horizons, int(300 // dt_control) and
+    # int(200 // dt_control): at 0.1, 2999 and 1999 (float floor division)
+    P, M = int(300 // DT_CONTROL), max(int(200 // DT_CONTROL), 1)
+    if (K.P, K.M, K.qp.n, K.qp.m) != (P, M, 2 * (M + 1), 2):
+        raise AssertionError("the canonical rig's MPC has the wrong shape")
+    return s, K_cpu, setup_s
+
+
+def phase_mpc(s, K_cpu, card: str) -> dict:
+    """(a) The no-noise closed loop of
+    ``results/bioreactor_closedloop/no_noise.py`` on the canonical MPC
+    (P=2999, M=1999) for ``LOOP_END`` time units: ``K.step`` latency,
+    solves per second, CUDA-event ms per solve, iterations per solve,
+    near-solved acceptances, and the first step against the same MPC's
+    solve on the CPU.
+
+    At these tolerances (1e-6) the float32 ADMM stalls at max_iter on
+    some steps of this loop, the reference's as well: a step that raises
+    falls back to the nominal input, as
+    ``results/bioreactor_closedloop/mpc_run_seq.py`` does at this
+    dt_control, and is counted. The phase fails if the first step raises
+    (the reference solves it) or more steps raise than the reference's
+    ``REF_RAISED``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lin, K = s.lin_model, s.K
+    K.reset()
+    ts = np.linspace(0, LOOP_END, int(LOOP_END * 10))
+    dt = ts[1]
+    plant = Bioreactor(s.bioreactor.X.copy(), high_N=False)
+    us, xs, ys = [np.array([0.06, 0.2])], [plant.X.copy()], [plant.outputs(None)]
+    lat, ev_ms, iters, status, raised = [], [], [], [], []
+    t_next = 0.0
+    first_args = None
+    # the profiler watches PROFILED solves of the loop, which are left out
+    # of the latency figures
+    n_solves = int(sim_loop.event_masks(ts, DT_CONTROL, DT_CONTROL)[1].sum())
+    first = min(10, n_solves // 2)
+    profiled = range(first, min(first + 5, n_solves))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for t in ts[1:]:
+        if t > t_next:
+            args = (lin.xn2d(xs[-1]), lin.un2d(us[-1]), lin.yn2d(ys[-1]))
+            first_args = first_args or args
+            i = len(iters)
+            if i == profiled.start:
+                torch.cuda.synchronize()
+                prof.start()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            try:
+                u = K.step(*args)
+            except ValueError:
+                if i == 0:
+                    raise
+                u = np.array([0.06, 0.2]) - lin.u_bar
+                raised.append(i)
+            end.record()
+            step_s = time.perf_counter() - t0
+            end.synchronize()
+            if i == profiled.stop - 1:
+                torch.cuda.synchronize()
+                prof.stop()
+            if i not in profiled:
+                lat.append(step_s)
+                ev_ms.append(start.elapsed_time(end))
+            iters.append(int(K.last_solution.iterations))
+            status.append(int(K.last_solution.status))
+            u_temp = us[-1].copy()
+            u_temp[lin.inputs] = lin.ud2n(u)
+            us.append(u_temp)
+            t_next += DT_CONTROL
+        else:
+            us.append(us[-1])
+        plant.step(dt, us[-1])
+        ys.append(plant.outputs(us[-1]))
+        xs.append(plant.X.copy())
+    us, ys = np.array(us), np.array(ys)
+    if not (np.isfinite(us).all() and np.isfinite(ys).all()):
+        raise AssertionError("MPC loop: non-finite inputs or outputs")
+    perf = harness.performance(ys[:, lin.outputs], lin.yd2n(K.ysp), ts)
+    lat_ms = np.array(lat) * 1e3
+    near = sum(st == cqp.MAX_ITER_REACHED for i, st in enumerate(status)
+               if i not in raised)
+    if len(raised) > REF_RAISED:
+        raise AssertionError(f"MPC loop: {len(raised)} of {len(status)} "
+                             f"steps raised ValueError, the reference's "
+                             f"{REF_RAISED}")
+
+    # the first step on the card against the same MPC on the CPU
+    K.reset()
+    got = K.step(*first_args)
+    want = K_cpu.step(*first_args)
+    K.reset()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    if err > 1e-4:
+        raise AssertionError(f"MPC first step: card {got} vs CPU {want}")
+
+    busy, span, ops, _ = busy_ms(prof)
+    n_prof = len(profiled)
+    metric = {
+        "metric": "mpc_solves_per_s_P3000_M2000", "unit": "solves/s",
+        "value": 1e3 / float(np.median(lat_ms)), "solves": len(lat),
+        "step_ms_median": float(np.median(lat_ms)),
+        "step_ms_p10": float(np.percentile(lat_ms, 10)),
+        "step_ms_p90": float(np.percentile(lat_ms, 90)),
+        "step_ms_max": float(lat_ms.max()),
+        "event_ms_per_solve": float(np.median(ev_ms)),
+        "iterations_median": float(np.median(iters)),
+        "iterations_max": int(max(iters)), "near_solved": int(near),
+        "raised": len(raised),
+        "profiled_busy_ms_per_solve": busy / n_prof,
+        "profiled_ops_per_solve": ops / n_prof,
+        "card": card,
+    }
+    log(f"MPC (a): no-noise loop to t={LOOP_END}, {len(lat)} solves, "
+        f"K.step {metric['step_ms_median']:.3f} ms median (p10 "
+        f"{metric['step_ms_p10']:.3f}, p90 {metric['step_ms_p90']:.3f}, max "
+        f"{metric['step_ms_max']:.3f}), {metric['value']:.1f} solves/s; "
+        f"CUDA events {metric['event_ms_per_solve']:.3f} ms/solve; "
+        f"iterations median {metric['iterations_median']:.0f}, max "
+        f"{metric['iterations_max']}; near-solved {near}, raised "
+        f"ValueError {len(raised)} (steps {raised}) of {len(status)}, the "
+        f"reference {REF_RAISED}; performance {perf:.6g} ({card})")
+    log(f"MPC (a): solves {profiled.start}-{profiled.stop - 1} of the loop "
+        f"under the profiler: {ops / n_prof:.1f} device ops, busy "
+        f"{busy / n_prof:.4f} of span {span / n_prof:.4f} ms per step; first "
+        f"step card {got.tolist()} vs CPU {want.tolist()} (rel err "
+        f"{err:.2e})")
+    return metric
+
+
+def loop_counts(path: str, events: int) -> None:
+    """``compact`` and ``expand`` once per control event: the resample."""
+    expect_counts(path, read_counts(), {"compact": events, "expand": events})
+
+
+def run_simulation(s, path: str, card: str) -> dict:
+    """``s.simulate()`` with the launch counts zeroed before it and read
+    after it; every output finite."""
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    s.simulate()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop_counts(path, s.update_count)
+    for name in ("us", "xs", "ys", "ys_meas", "xs_f", "ys_f",
+                 "covariance_point_size"):
+        if not np.isfinite(getattr(s, name)).all():
+            raise AssertionError(f"{path}: non-finite {name}")
+    if not np.isfinite(s.performance):
+        raise AssertionError(f"{path}: non-finite performance")
+    ms = wall / s.update_count * 1e3
+    log(f"{path}: n={s.f.N_particles}, MPC P={s.K.P}: {s.update_count} "
+        f"control events, {s.predict_count} predicts in {wall:.3f} s, "
+        f"{ms:.3f} ms per control event; mpc_frac {s.mpc_frac}; performance "
+        f"{s.performance:.6g}; launches compact {s.update_count}, expand "
+        f"{s.update_count} ({card})")
+    return {"ms_per_control_event": ms, "mpc_frac": s.mpc_frac,
+            "performance": float(s.performance), "events": s.update_count}
+
+
+def phase_closed_loop(s, card: str):
+    """(b) ``Simulation`` with the PF at 2^20 particles on the P=3000
+    MPC, through the entry point a user calls. Returns its metrics and
+    the filter's and the plant's initial state, for (c)."""
+    s.K.reset()
+    state = s.f.state
+    state0 = dataclasses.replace(state, particles=state.particles.clone(),
+                                 weights=state.weights.clone())
+    x0 = s.bioreactor.X.copy()
+    return run_simulation(s, "closed loop (b), Simulation, PF", card), \
+        state0, x0
+
+
+def phase_scan_loop(dev, s, state0, x0, card: str, seed: int) -> dict:
+    """(c) ``make_scan_loop`` at 2^20 particles on the P=3000 MPC, from
+    (b)'s initial filter and plant state: the filter, plant, input and
+    warm start on the card."""
+    K, lin = s.K, s.lin_model
+    state_pdf, meas_pdf = harness.get_noise(device=dev)
+    run, ts = sim_loop.make_scan_loop(
+        K, lin, state_pdf.dist, meas_pdf.dist, end_time=LOOP_END,
+        dt_control=DT_CONTROL, dt_predict=DT_CONTROL)
+    events = int(sim_loop.event_masks(ts, DT_CONTROL, DT_CONTROL)[1].sum())
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rec = run(state0, x0, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop_counts("scan loop (PF)", events)
+    for name in rec._fields:
+        t_ = getattr(rec, name)
+        if t_.device != dev or not torch.isfinite(t_.float()).all():
+            raise AssertionError(f"scan loop: {name} non-finite or off card")
+    if rec.us.shape != (len(ts) - 1, 2):
+        raise AssertionError(f"scan loop: us {tuple(rec.us.shape)}")
+    solved = float((rec.status == cqp.SOLVED).float().mean())
+    us = rec.us.cpu().numpy()
+    if np.abs(us - np.array([0.06, 0.2])).max() <= 1e-4:
+        raise AssertionError("scan loop: the controller never moved u")
+    ms = wall / events * 1e3
+    log(f"scan loop (c): make_scan_loop, PF at n={N}, MPC P={K.P}: "
+        f"{events} control events in {wall:.3f} s, {ms:.3f} ms per control "
+        f"event; solved share {solved:.3f}; final x "
+        f"{[round(v, 4) for v in rec.xs[-1].tolist()]}, estimate "
+        f"{[round(v, 4) for v in rec.xs_f[-1].tolist()]} ({card})")
+    return {"ms_per_control_event": ms, "solved_share": solved,
+            "events": events}
+
+
+def phase_gsukf_loop(dev, card: str, seed: int) -> dict:
+    """(d) ``Simulation`` with the GSUKF at 2^18 Gaussians on the P=3000
+    MPC for ``GSUKF_LOOP_END`` time units (its own host setup)."""
+    t0 = time.perf_counter()
+    s = harness.Simulation(N_particles=N_BANK, dt_control=DT_CONTROL,
+                           dt_predict=DT_CONTROL, end_time=GSUKF_LOOP_END,
+                           pf=False, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"closed loop (d): Simulation with the GSUKF at N={N_BANK} built "
+        f"in {time.perf_counter() - t0:.2f} s ({card})")
+    return run_simulation(s, "closed loop (d), Simulation, GSUKF", card)
+
+
+def phase_first_qp(dev, card: str) -> None:
+    """(e) The first step of the no-noise loop at P=300, M=200
+    (dt_control = 1), the QP that stalls the reference's float32 ADMM on
+    a TPU: ``MPC.step`` on the card and on the CPU, its status,
+    iterations and residuals read from ``last_solution``. The CPU's
+    control is held to ``u = [-0.028, -0.1]``, the card's to the CPU's."""
+    out = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        plant, lin, K, _ = harness.get_parts(dt_control=1, device=device)
+        args = (lin.xn2d(plant.X), lin.un2d(np.array([0.06, 0.2])),
+                lin.yn2d(plant.outputs(None)))
+        try:
+            u = K.step(*args)
+        except ValueError:
+            u = None
+        sol = K.last_solution
+        out[where] = u
+        if u is not None and not np.isfinite(u).all():
+            raise AssertionError(f"first QP on the {where}: non-finite")
+        log(f"first QP (e), P={K.P} M={K.M} on the {where}: status "
+            f"{int(sol.status)}, iterations {int(sol.iterations)}, prim "
+            f"{float(sol.prim_res):.3e}, dual {float(sol.dual_res):.3e}, u "
+            f"{None if u is None else u.tolist()} (x2d {args[0].tolist()}, "
+            f"um1 {args[1].tolist()}, y2d {args[2].tolist()}; {card})")
+    if out["cpu"] is None or np.abs(
+            out["cpu"] - np.array([-0.028, -0.1])).max() > 1e-3:
+        raise AssertionError("first QP on the CPU: not u = [-0.028, -0.1]")
+    if out["card"] is not None:
+        err = float(np.abs(out["card"] - out["cpu"]).max()
+                    / np.abs(out["cpu"]).max())
+        if err > 1e-4:
+            raise AssertionError(f"first QP: card {out['card']} vs CPU "
+                                 f"{out['cpu']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1496,6 +1822,18 @@ def main() -> int:
     v2_err = phase_v2_path(dev, args.seed, card)
     errs["expand"] = max(errs["expand"], v2_err)
     gsukf_metric = phase_gsukf(dev, args.seed, card)
+    sim_b, K_cpu, setup_s = control_setup(dev, args.seed, card)
+    mpc_metric = phase_mpc(sim_b, K_cpu, card)
+    mpc_metric["host_setup_s"] = setup_s
+    pf_metric, state0, x0 = phase_closed_loop(sim_b, card)
+    loop_metric = {
+        "metric": "closed_loop_ms_per_control_event_pf_2^20_P3000",
+        "pf": pf_metric,
+        "scan": phase_scan_loop(dev, sim_b, state0, x0, card, args.seed),
+        "gsukf_2^18": phase_gsukf_loop(dev, card, args.seed),
+        "card": card,
+    }
+    phase_first_qp(dev, card)
     times.update(merge_times)
     bounds.update(merge_bounds)
     # no single PyTorch call computes any of these functions (each is a
@@ -1514,6 +1852,8 @@ def main() -> int:
     print(card)
     print(json.dumps(metric))
     print(json.dumps(gsukf_metric))
+    print(json.dumps(mpc_metric))
+    print(json.dumps(loop_metric))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

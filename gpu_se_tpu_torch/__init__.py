@@ -1,12 +1,15 @@
-"""PyTorch + CUDA port of ``gpu_se_tpu``'s state estimators, for one
-NVIDIA H100.
+"""PyTorch + CUDA port of ``gpu_se_tpu``'s state estimators and
+controller, for one NVIDIA H100.
 
 The JAX package ``gpu_se_tpu`` is the reference this package is tested
 against; the two share no code. Layout mirrors the reference so each
 counterpart is easy to find:
 
-* ``models/bioreactor.py``: the bioreactor regime functions on stacked
-  ``(5, ...)`` tensors;
+* ``models/``: the bioreactor regime functions on stacked ``(5, ...)``
+  tensors, the ``NonlinearModel`` base with its host shells (bioreactor,
+  CSTR, tanks) and the linear model with its linearizer;
+* ``control/``: the dense ADMM QP and the condensed MPC;
+* ``sim/``: the closed-loop harness and the on-device loop;
 * ``distributions/gaussian_sum.py``: the Gaussian mixtures (draws, pdf,
   the deterministic replay mixture);
 * ``filters/particle_tiled.py``: the fused predict + update + resample

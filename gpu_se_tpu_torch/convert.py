@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch.control.qp import QPConstants
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
 from gpu_se_tpu_torch.filters.gs_ukf import GSUKFState
 from gpu_se_tpu_torch.filters.particle import PFState
@@ -57,3 +58,13 @@ def gsukf_state_from_numpy(means, covariances, weights,
         return torch.tensor(np.asarray(a), device=generator.device)
 
     return GSUKFState(dev(means), dev(covariances), dev(weights), generator)
+
+
+def qp_constants_from_numpy(device="cuda", **leaves) -> QPConstants:
+    """A :class:`QPConstants` holding exactly the reference's
+    ``QPConstants`` leaves, given by field name as numpy arrays (float32:
+    the reference runs with x64 off), so both solvers use identical
+    constants."""
+    return QPConstants(**{
+        name: torch.tensor(np.asarray(leaf), device=device)
+        for name, leaf in leaves.items()})

@@ -1,21 +1,39 @@
-"""Process models on stacked ``(nx, ...)`` tensors.
-
-The bioreactor's regime functions are here. The reference's
-``NonlinearModel`` base, its ``Bioreactor`` shell, the CSTR, the linear
-model and the tanks come with the control slice (``ROADMAP.md`` item 9).
-"""
+"""Process models: the bioreactor's regime functions on stacked
+``(nx, ...)`` tensors, the ``NonlinearModel`` base with its host shells
+(bioreactor, CSTR, tanks) and the linear model with its linearizer."""
+from gpu_se_tpu_torch.models.base import NonlinearModel
 from gpu_se_tpu_torch.models.bioreactor import (
+    Bioreactor,
     all_outputs,
     euler_step,
     high_n_des,
     homeostatic_des,
     static_outputs,
 )
+from gpu_se_tpu_torch.models.cstr import (
+    CSTRModel,
+    analytic_jacobians,
+    cstr_des,
+    cstr_outputs,
+)
+from gpu_se_tpu_torch.models.linear import LinearModel, create_linear_model
+from gpu_se_tpu_torch.models.tanks import DiagTank, LinkedTanks, TankModel
 
 __all__ = [
+    "NonlinearModel",
+    "Bioreactor",
     "homeostatic_des",
     "high_n_des",
     "static_outputs",
     "all_outputs",
     "euler_step",
+    "CSTRModel",
+    "cstr_des",
+    "cstr_outputs",
+    "analytic_jacobians",
+    "LinearModel",
+    "create_linear_model",
+    "TankModel",
+    "DiagTank",
+    "LinkedTanks",
 ]

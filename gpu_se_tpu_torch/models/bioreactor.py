@@ -7,11 +7,21 @@ reference's, op for op and in the same order, so float32 results agree
 bit for bit with the reference's eager ``xp=jnp`` path, on the CPU and
 on a CUDA card; ``max(x, 0)`` becomes ``torch.clamp_min`` because the
 reference's ``xp.maximum(tensor, 0.0)`` does not accept a torch tensor.
+
+The :class:`Bioreactor` shell runs the host plant in float64 numpy
+through these functions on CPU float64 tensors, and gives the linearizer
+its pure ``des``/``out`` hooks. The hooks take ``max(x, 0)`` by
+``torch.maximum``, whose forward derivative at a tie is 1/2, as
+``jax.jacfwd``'s of ``jnp.maximum`` is; ``torch.clamp_min``'s is 1. The
+canonical linearization point has ``Ce = 0`` exactly, where the two part.
 """
 from __future__ import annotations
 
 import numpy as np
+import scipy.optimize
 import torch
+
+from gpu_se_tpu_torch.models.base import NonlinearModel
 
 # Molar masses of [glucose, biomass, fumaric acid, ethanol, H+] (g/mol)
 MOLAR_MASSES = np.array([180.0, 24.6, 116.0, 46.0, 1.0])
@@ -38,17 +48,32 @@ def _div(a: torch.Tensor, c: float) -> torch.Tensor:
     return a / torch.full((), c, dtype=a.dtype, device=a.device)
 
 
+def _clamp0(v: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(v, 0.0)
+
+
+def _max0(v: torch.Tensor) -> torch.Tensor:
+    """``max(v, 0)`` by ``torch.maximum``: the value of :func:`_clamp0`,
+    and a forward derivative of 1/2 at ``v == 0``."""
+    return torch.maximum(v, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
 def homeostatic_des(x: torch.Tensor, u: torch.Tensor, dt=1.0) -> torch.Tensor:
     """Low-nitrogen production-phase state deltas ``f(x, u) * dt``.
 
     ``x`` is ``(5, ...)``, ``u`` is ``(2,)`` ``[Fg_in, Fm_in]``; returns
     the state change over ``dt`` with the shape of ``x``.
     """
+    return _homeostatic(x, u, dt, _clamp0)
+
+
+def _homeostatic(x, u, dt, max0):
+    """:func:`homeostatic_des` with ``max(., 0)`` taken by ``max0``."""
     Cg, Cx, Cfa, Ce, Ch = x[0], x[1], x[2], x[3], x[4]
-    Cg = torch.clamp_min(Cg, 0.0)
-    Cx = torch.clamp_min(Cx, 0.0)
-    Cfa = torch.clamp_min(Cfa, 0.0)
-    Ce = torch.clamp_min(Ce, 0.0)
+    Cg = max0(Cg)
+    Cx = max0(Cx)
+    Cfa = max0(Cfa)
+    Ce = max0(Ce)
 
     Fg_in, Fm_in = u[0], u[1]
     Cg_in = 5000.0 / 180.0
@@ -68,16 +93,16 @@ def homeostatic_des(x: torch.Tensor, u: torch.Tensor, dt=1.0) -> torch.Tensor:
         _div(_div(r_theta1_max, 2000.0), 0.28 / 180.0) * rH + 0.01 * Ch
     )
     r_theta1 = torch.minimum(
-        r_theta1_max, torch.clamp_min(r_theta1_req, 0.0)
+        r_theta1_max, max0(r_theta1_req)
     ) * (Cg / (1e-2 + Cg))
 
     r_E_max = 0.025 / 46.0 * Cx * 24.6 * V
     rE_req = r_theta1_req - r_theta1_max
-    rE = torch.minimum(r_E_max, torch.clamp_min(rE_req, 0.0))
+    rE = torch.minimum(r_E_max, max0(rE_req))
 
     r_theta2_max = (0.1 - 0.025) / 180.0 * Cx * 24.6 * V
     r_theta2_req = r_theta1_req - r_theta1_max - rE
-    r_theta2 = torch.minimum(r_theta2_max, torch.clamp_min(r_theta2_req, 0.0))
+    r_theta2 = torch.minimum(r_theta2_max, max0(r_theta2_req))
 
     rG = -rFA * (116.0 / 180.0) - r_theta1 - rE * (46.0 / 180.0) - r_theta2
 
@@ -97,10 +122,15 @@ def high_n_des(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     shape after it works (the reference's ``@`` takes ``(5,)`` or
     ``(5, n)``).
     """
-    Cg = torch.clamp_min(x[0], 0.0)
-    Cx = torch.clamp_min(x[1], 0.0)
-    Cfa = torch.clamp_min(x[2], 0.0)
-    Ce = torch.clamp_min(x[3], 0.0)
+    return _high_n(x, u, _clamp0)
+
+
+def _high_n(x, u, max0):
+    """:func:`high_n_des` with ``max(., 0)`` taken by ``max0``."""
+    Cg = max0(x[0])
+    Cx = max0(x[1])
+    Cfa = max0(x[2])
+    Ce = max0(x[3])
 
     Fg_in, Fm_in = u[0], u[1]
     Cg_in = 5000.0 / 180.0
@@ -150,3 +180,76 @@ def euler_step(x: torch.Tensor, u: torch.Tensor, dt, high_n: bool = False):
         dx = homeostatic_des(x, u, dt)
     x_new = x + dx
     return torch.cat([torch.clamp_min(x_new[:4], 0.0), x_new[4:]])
+
+
+# ----------------------------------------------------------------------
+def _host(fn, *args) -> np.ndarray:
+    """``fn`` of float64 numpy arguments, through CPU float64 tensors."""
+    return fn(*(torch.as_tensor(np.asarray(a, dtype=np.float64))
+                for a in args)).numpy()
+
+
+class Bioreactor(NonlinearModel):
+    """Stateful bioreactor shell over the regime functions, with the
+    reference's constructor surface. The plant (``DEs``, ``step``,
+    ``outputs``) is host float64 numpy; ``des`` and ``out`` are the
+    linearizer's torch hooks."""
+
+    def __init__(self, X0, t=0.0, high_N=True):
+        self.X = np.array(X0, dtype=float)
+        self.t = float(t)
+        self.high_N = high_N
+
+    def DEs(self, inputs):
+        if self.high_N:
+            return _host(high_n_des, self.X, inputs)
+        return _host(homeostatic_des, self.X, inputs)
+
+    def step(self, dt, inputs):
+        self.t += dt
+        self.X = self.X + self.DEs(inputs) * dt
+        self.X[:4] = np.maximum(self.X[:4], 0.0)
+
+    def outputs(self, inputs):
+        del inputs
+        return self.X * MOLAR_MASSES
+
+    def raw_outputs(self, inputs):
+        del inputs
+        return self.X
+
+    def des(self, x, u):
+        if self.high_N:
+            return _high_n(x, u, _max0)
+        return _homeostatic(x, u, 1.0, _max0)
+
+    def out(self, x, u):
+        del u
+        return all_outputs(x)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def homeostatic_DEs(x, u, dt=1.0):
+        """Reference-named alias: the filters' ``f``."""
+        return homeostatic_des(x, u, dt)
+
+    @staticmethod
+    def static_outputs(x, u):
+        """Reference-named alias: the filters' ``g``."""
+        return static_outputs(x, u)
+
+    @staticmethod
+    def find_SS(U_op, X0):
+        """Steady state of the low-N regime near ``X0`` with the biomass
+        ``X0[1]`` held fixed: one ``scipy.optimize.fsolve`` from ``X0``."""
+        U_op = np.asarray(U_op, dtype=float)
+        X0 = np.asarray(X0, dtype=float)
+
+        def fun(x_ss):
+            x = np.array(x_ss, dtype=float)
+            x[1] = X0[1]
+            return _host(homeostatic_des, x, U_op)
+
+        res = np.asarray(scipy.optimize.fsolve(fun, X0), dtype=float)
+        res[1] = X0[1]
+        return res

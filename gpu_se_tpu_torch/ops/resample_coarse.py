@@ -94,13 +94,26 @@ def blocked_cummax(e: torch.Tensor) -> torch.Tensor:
 def ends_from_weights(weights: torch.Tensor, r) -> torch.Tensor:
     """``clamp(cummax(floor(n * cs - r)), -1, n - 1)`` as int32, with
     ``cs`` the float32 cumsum of ``weights`` (:func:`blocked_cumsum`)
-    divided by its last entry and ``r`` a float32 uniform in ``[0, 1)``.
+    divided by its last entry and ``r`` a float32 uniform in ``[0, 1)``;
+    then the run of entries tied with the last raised to ``n - 1``.
+
+    Finite weights end at ``n - 1`` already. Weights that sum to 0 (or
+    overflow) give a NaN cumsum, which converts to 0 as the reference's
+    XLA converts it, so ``ends`` stops short of ``n - 1``; the reference's
+    scatter and cummax then give every slot past ``ends[-1]`` the first
+    entry of the last run. Raising that run to ``n - 1`` gives the same
+    ancestors through ``#{k : ends_k < i}``, the contract of every
+    gather kernel and plain version.
     """
     n = weights.shape[0]
     cumsum = blocked_cumsum(weights)
     cumsum = cumsum / cumsum[-1]
-    ends = torch.floor(n * cumsum - r).to(torch.int32)
-    return torch.clamp(blocked_cummax(ends), -1, n - 1)
+    ends = torch.floor(n * cumsum - r)
+    # to int32 as the reference's XLA converts: NaN to 0, out of range
+    # saturated; the clamp commutes with the cummax
+    ends = torch.clamp(torch.nan_to_num(ends, nan=0.0), -1, n - 1)
+    ends = blocked_cummax(ends.to(torch.int32))
+    return torch.where(ends == ends[-1:], n - 1, ends)
 
 
 def indices_from_ends(ends: torch.Tensor) -> torch.Tensor:

@@ -321,6 +321,41 @@ def test_router_auto_routes_launch_their_kernels_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route, kernel", [("auto", rp4.expand),
+                                           ("ends", rpb.ends_merge_round),
+                                           ("coarse", rc.coarse_gather)])
+def test_router_all_zero_weights_on_card(cuda, route, kernel):
+    """Weights that sum to 0 at 2^20: the card's route launches its
+    kernel and gives what the CPU route gives, every slot particle 0,
+    the reference's answer (``test_torch_resample_router.py`` holds the
+    CPU route to it); so does the bank route."""
+    n = 2**20
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32))
+    w = torch.zeros(n)
+    r = torch.tensor(np.float32(0.37))
+    first = x[:1].expand(n, 5)
+    with rs.impl(route):
+        want, _ = rs.systematic_resample_from_r(x, w, r)
+        launches = kernel.launches
+        got, _ = rs.systematic_resample_from_r(x.to(cuda), w.to(cuda),
+                                               r.to(cuda))
+        torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    assert torch.equal(want, first)
+    assert torch.equal(got.cpu(), want)
+    if route == "auto":
+        covs = x[:, :, None] * x[:, None, :]
+        launches = rp4.compact.launches
+        (gm, gc), _ = rs.systematic_resample_bank_from_r(
+            x.to(cuda), covs.to(cuda), w.to(cuda), r.to(cuda))
+        torch.cuda.synchronize()
+        assert rp4.compact.launches == launches + 1
+        assert torch.equal(gm.cpu(), first)
+        assert torch.equal(gc.cpu(), covs[:1].expand(n, 5, 5))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("route, kernel", [("ends", "ends_merge_round"),
                                            ("v3", "cumsum_merge"),
                                            ("pallas", "cumsum_merge"),
@@ -730,3 +765,44 @@ def test_coarse_gather_edge_cases_on_card(cuda, case):
         assert torch.equal(g, wt)
     torch.cuda.synchronize()
     assert rc.coarse_gather.launches == launches + 1
+
+
+# ----------------------------------------------------------------------
+# the QP's chunks of iterations, replayed from a CUDA graph on the card
+# ----------------------------------------------------------------------
+def _random_qp(n, m, seed):
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    A = rng.normal(size=(m, n))
+    x = rng.normal(size=n)
+    margin = rng.uniform(0.1, 1.0, size=m)
+    return M @ M.T + np.eye(n), A, rng.normal(size=n), A @ x - margin, \
+        A @ x + margin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("identity", [False, True])
+def test_qp_graph_matches_cpu_on_card(cuda, identity):
+    """A solve on the card (its chunks replayed from a CUDA graph) ends
+    with the CPU solve's status and within 1e-4 of its ``x``; a second
+    solve replays the same graph to the same bits; a batch member lands
+    within 1e-4 of the CPU's too."""
+    from gpu_se_tpu_torch.control import qp
+
+    P, A, q, l, u = _random_qp(20, 30, 3)
+    if identity:
+        P = np.eye(20)
+    solvers = {d: qp.DenseQP(P, A, l, u, q, device=d) for d in ("cpu", cuda)}
+    want = solvers["cpu"].solve(q, l, u)
+    card = solvers[cuda]
+    got = card.solve(q, l, u)
+    again = card.solve(q, l, u)
+    assert int(got.status) == int(want.status) == qp.SOLVED
+    x = want.x.numpy()
+    assert np.abs(got.x.cpu().numpy() - x).max() <= 1e-4 * np.abs(x).max()
+    for f in ("x", "y", "z", "status", "iterations"):
+        assert torch.equal(getattr(got, f), getattr(again, f))
+    batch = card.solve_batch(np.stack([q, 2 * q]), np.stack([l, l]),
+                             np.stack([u, u]))
+    assert batch.status.tolist() == [qp.SOLVED] * 2
+    assert np.abs(batch.x[0].cpu().numpy() - x).max() <= 1e-4 * np.abs(x).max()

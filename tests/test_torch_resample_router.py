@@ -651,3 +651,44 @@ def test_merges_copy_signed_zero_and_non_finite_rows_exactly():
         assert np.count_nonzero(np.isinf(got)) == np.count_nonzero(a == 100)
         assert np.count_nonzero(np.isnan(got)) == np.count_nonzero(a == 200)
     np.testing.assert_array_equal(acc[:, :5].numpy(), want)
+
+
+# ----------------------------------------------------------------------
+# weights without a finite positive sum
+# ----------------------------------------------------------------------
+def _no_sum_weights(kind, n):
+    w = np.ones(n, np.float32)
+    if kind == "zeros":
+        w[:] = 0.0
+    elif kind == "overflow":        # finite weights whose sum is inf
+        w[n // 2:] = np.finfo(np.float32).max
+    else:
+        w[n // 3] = np.nan
+    return w
+
+
+@pytest.mark.parametrize("kind", ["zeros", "overflow", "nan"])
+@pytest.mark.parametrize("route", ["auto", "xla", "ends", "v4", "coarse",
+                                   "bank"])
+def test_weights_without_a_finite_sum_follow_the_reference(kind, route):
+    """A NaN normalized cumsum: every slot takes the ancestor the
+    reference's XLA route gives (the first entry of the last run of
+    ``ends``), on every route but the cumsum merges', whose keys are the
+    NaN cumsum itself."""
+    n = 4096
+    parts, _, r = _case(n, "near_uniform")
+    w = _no_sum_weights(kind, n)
+    want = parts[np.asarray(jrs.systematic_resample_indices(
+        jnp.asarray(w), jnp.asarray(r)))]
+    ends = trc.ends_from_weights(_t(w), _t(r))
+    assert int(ends[-1]) == n - 1
+    with trs.impl(route):
+        if route == "bank":
+            a = parts[:, :3]
+            covs = _t(a[:, :, None] * a[:, None, :])
+            (got, _), _ = trs.systematic_resample_bank_from_r(
+                _t(parts[:, :3]), covs, _t(w), _t(r))
+            want = want[:, :3]
+        else:
+            got, _ = trs.systematic_resample_from_r(_t(parts), _t(w), _t(r))
+    np.testing.assert_array_equal(got.numpy(), want)
