@@ -41,7 +41,10 @@ Phases, each of which raises on failure:
 7. the router's other auto routes at full width: a ``(2^20, 8)``
    payload (cumsum merge), a 2^18 Gaussian bank through
    ``systematic_resample`` (ends merge) and ``systematic_resample_bank``
-   (compact + expand);
+   (compact + expand); and the ``v3`` and ``pallas`` routes at 2^20 on
+   weights without a finite sum (``rig.no_sum_weights``: all 0, a sum
+   that overflows, a NaN), each equal to the CPU's result, one particle
+   in every slot;
 8. the merge and coarse kernels timed against their plain versions at
    the flat main path's inputs; ``ends_merge_round`` also at 8 columns
    there, at the router's 2^18 bank tree (30 columns), all three on the
@@ -90,7 +93,25 @@ Phases, each of which raises on failure:
     the first QP of the no-noise loop at P = 300, M = 200 on the card
     and on the CPU (status, iterations and residuals from
     ``last_solution``, control), the CPU's control held to
-    ``u = [-0.028, -0.1]`` and the card's, when it solves, to the CPU's.
+    ``u = [-0.028, -0.1]`` and the card's, when it solves, to the CPU's;
+13. the scenario MPC and the instrumentation: (f) at the canonical
+    rig's width (dt_control = 1: P = 300, M = 200, u bounds only) over
+    ``rig.SCENARIOS`` = 16 scenarios about (e)'s ``x2d``: the stacked
+    ``ScenarioMPC`` (n_D = 6402) on the card against a CPU copy within
+    1e-4, the consensus step (40 outer iterations, ``rho_consensus``
+    the du_0 block's Schur complement, mean diagonal) within 2e-3 of the
+    stacked control with a gap under 1e-3, the independent solves
+    (``make_scenario_solver``) within 1e-4 of single ``make_device_step``
+    solves with no more rows unsolved than the reference's
+    ``REF_UNSOLVED``, and ``rig.binding_case()`` on the card against the
+    CPU (the hedge above 1e-3, every scenario within 1e-3 of its bounds);
+    the median ms of 10 calls of each; (g) ``RunSequences`` of the flat
+    step (auto) at 2^16, 2^18 and 2^20, 50 runs each in chunks of 5,
+    with ``max_abs_pacf`` printed beside the 0.2 gate,
+    ``PowerMeasurement`` over 5 s of steps at 2^20 (fails unless the
+    card's energy is finite, positive and its mean power under 105% of
+    the power limit) and a ``StateCheckpointer`` resume at 2^20 that must
+    equal the unbroken run bit for bit.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel's ``launches`` is the sum over the paths. Every
@@ -104,8 +125,9 @@ a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
-``nvidia-smi`` line, the four metric JSON lines (tiled PF, GSUKF, MPC,
-closed loop) and, last, ``{"ok": true, "device": {...}}``. Run from the
+``nvidia-smi`` line, the six metric JSON lines (tiled PF, GSUKF, MPC,
+closed loop, scenario MPC, instrumentation) and, last, ``{"ok": true,
+"device": {...}}``. Run from the
 repository root::
 
     python3 chip_smoke.py [--seed 0]
@@ -119,12 +141,14 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
 
 import numpy as np
+import scipy.linalg
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -148,6 +172,15 @@ from gpu_se_tpu_torch.control import qp as cqp  # noqa: E402
 from gpu_se_tpu_torch.models import Bioreactor  # noqa: E402
 from gpu_se_tpu_torch.sim import harness  # noqa: E402
 from gpu_se_tpu_torch.sim import loop as sim_loop  # noqa: E402
+from gpu_se_tpu_torch.control import MPC, ScenarioMPC  # noqa: E402
+from gpu_se_tpu_torch.control import consensus_consts  # noqa: E402
+from gpu_se_tpu_torch.control import scenario_mpc  # noqa: E402
+from gpu_se_tpu_torch.control.mpc import make_device_step  # noqa: E402
+from gpu_se_tpu_torch.models import LinearModel  # noqa: E402
+from gpu_se_tpu_torch.parallel import make_consensus_scenario_step  # noqa: E402
+from gpu_se_tpu_torch.parallel import make_scenario_solver  # noqa: E402
+from gpu_se_tpu_torch.utils import PowerMeasurement, RunSequences  # noqa: E402
+from gpu_se_tpu_torch.utils import StateCheckpointer, max_abs_pacf  # noqa: E402
 
 N = 2**20
 N_BANK = 2**18
@@ -157,6 +190,10 @@ GSUKF_LOOP_END = 2
 # steps of (a)'s loop on which the reference's own float32 ADMM raises
 # ValueError on the CPU (scripts/mpc_loop_status.py --package jax: 8 of 49)
 REF_RAISED = 8
+# rows of (f)'s 16 independent solves on which the reference's float32
+# ADMM stops at max_iter on the CPU (scripts/scenario_status.py --package
+# jax: row 3)
+REF_UNSOLVED = 1
 STEPS = 50
 ROUTE_STEPS = 10
 GSUKF_STEPS = 30
@@ -166,6 +203,11 @@ CALL_MARK = "device_ms call"   # the host range of one timed call
 COMPACT_REPEATS = 200
 N_MANY_TILES = 2**24     # more tiles of `compact` than blocks the card holds
 WATCHDOG_S = 300
+TIMED_CALLS = 10          # calls of each scenario-MPC entry timed in (f)
+RUN_SEQ_NS = (2**16, 2**18, 2**20)   # (g)'s run sequences
+RUN_SEQ_RUNS = 50
+RUN_SEQ_CHUNK = 5
+POWER_T_RUN = 5.0         # seconds of steps under PowerMeasurement in (g)
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_parity_step.npz")
 GSUKF_FIXTURE = os.path.join(REPO, "tests", "data",
@@ -533,9 +575,9 @@ def phase_merge_edge_cases(dev, seed: int) -> dict[str, float]:
         log(f"edge case {name} == plain")
     for family, n, rows in rig.cumsum_merge_cases():
         w, r = rig.edge_weights(family, n, seed)
-        cs = rp3.normalized_cumsum(torch.from_numpy(w).to(dev))
-        payload = torch.from_numpy(rig.edge_payload(rows, n, seed)).to(dev)
         r = torch.tensor(r, device=dev)
+        cs = rp3.normalized_cumsum(torch.from_numpy(w).to(dev), r)
+        payload = torch.from_numpy(rig.edge_payload(rows, n, seed)).to(dev)
         got = rp3.cumsum_merge(cs, payload, r)
         want = rp3.cumsum_merge_plain(cs, payload, r)
         name = f"cumsum_merge {rig.edge_id((family, n, rows))}"
@@ -647,7 +689,7 @@ def phase_merge_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
             w = family_weights(family, n, rng, dev)
             r = torch.tensor(np.float32(rng.random()), device=dev)
             ends = ends_from_weights(w, r)
-            cs = rp3.normalized_cumsum(w)
+            cs = rp3.normalized_cumsum(w, r)
             for nx in (5, 30):
                 parts = randn(rng, (n, nx), dev)
                 got = rpb.ends_merge_round(
@@ -1036,6 +1078,29 @@ def phase_router_routes(dev, seed: int) -> None:
           lambda gen: rs.systematic_resample_bank(means, covs, wb, gen),
           exact=True)
 
+    # weights without a finite positive sum: the cumsum-merge routes on
+    # the card give what they give on the CPU, one particle in every slot
+    # (the CPU tests hold that to the reference's XLA route)
+    x = randn(rng, (N, 5), dev)
+    r = torch.tensor(np.float32(0.37), device=dev)
+    for kind in rig.NO_SUM_KINDS:
+        w = torch.from_numpy(rig.no_sum_weights(kind, N))
+        for route in ("v3", "pallas"):
+            with rs.impl(route):
+                want = rs.systematic_resample_from_r(x.cpu(), w, r.cpu())[0]
+                zero_counts()
+                got = rs.systematic_resample_from_r(x, w.to(dev), r)[0]
+                torch.cuda.synchronize()
+            expect_counts(f"route {route}, {kind} weights", read_counts(),
+                          {"cumsum_merge": 1})
+            if not (torch.equal(got.cpu(), want)
+                    and torch.equal(want, want[:1].expand(N, 5))):
+                raise AssertionError(f"route {route} on {kind} weights: "
+                                     f"the card differs from the CPU")
+        log(f"router v3, pallas on {kind} weights at n={N}: every slot "
+            f"particle {int(torch.nonzero((x.cpu() == want[0]).all(1))[0])},"
+            f" the CPU's")
+
 
 def ends_round_bound(n: int, m: int, nx: int):
     """Bound of one ``ends_merge_round`` over the whole pool: ``ends`` and
@@ -1080,7 +1145,7 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
     one-survivor and all-survive cases at 2^24."""
     parts = state.particles.contiguous()
     ends = ends_from_weights(state.weights, r)
-    cs = rp3.normalized_cumsum(state.weights)
+    cs = rp3.normalized_cumsum(state.weights, r)
     payload = parts.T.contiguous()
     o = rc.chunk_boundaries(ends, N)
 
@@ -1160,7 +1225,7 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
     w = torch.from_numpy(w).to(dev)
     rh = torch.tensor(rh, device=dev)
     e_big = ends_from_weights(w, rh)
-    cs_big = rp3.normalized_cumsum(w)
+    cs_big = rp3.normalized_cumsum(w, rh)
     p_big = torch.from_numpy(rig.edge_payload(5, n, seed)).to(dev)
     x_big = p_big.T.contiguous()
     m_big = survivors(e_big)
@@ -1794,6 +1859,301 @@ def phase_first_qp(dev, card: str) -> None:
                                  f"{out['cpu']}")
 
 
+# ----------------------------------------------------------------------
+# the scenario MPC and the instrumentation
+# ----------------------------------------------------------------------
+def median_ms(fn, calls: int = TIMED_CALLS):
+    """``(median ms, last result)`` of ``calls`` calls of ``fn`` on the
+    host clock, each ended by a synchronise."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def phase_scenario(dev, card: str) -> dict:
+    """(f) The scenario MPC at the canonical rig's full width (dt_control
+    = 1: P = 300, M = 200, Ni = No = 2, u bounds only) over ``rig.
+    SCENARIOS`` scenarios about (e)'s first-step ``x2d``, ``um1`` (e)'s,
+    zero biases: the stacked ``ScenarioMPC`` on the card against a CPU
+    copy, the consensus step against the stacked control, the independent
+    solves against single solves, then the binding case of
+    ``tests/test_scenario_mpc.py`` on the card against the CPU."""
+    t_phase = time.perf_counter()
+    zero_counts()
+    plant, lin, K, _ = harness.get_parts(dt_control=1, device=dev)
+    x2d = lin.xn2d(plant.X)
+    um1 = lin.un2d(np.array([0.06, 0.2]))
+    S = rig.SCENARIOS
+    x0s = x2d[None, :] + rig.scenario_offsets(S, x2d.shape[0])
+    biases = np.zeros((S, lin.No))
+    u_bounds = [np.array([0, np.inf]) - lin.u_bar[i] for i in range(2)]
+    args = (K.P, K.M, K.Q, K.R, lin, K.ysp)
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    # the stacked problem, on the card and on a CPU copy
+    smpc = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        smpc[where] = ScenarioMPC(*args, n_scenarios=S, u_bounds=u_bounds,
+                                  device=device)
+        setup_s = time.perf_counter() - t0
+        ctrl = smpc[where].step(x0s, um1, biases)[0]
+        sol = smpc[where].last_solution
+        log(f"scenario (f), stacked on the {where}: S={S}, n_D="
+            f"{smpc[where].n_D}, m={smpc[where].m}; host setup {setup_s:.2f}"
+            f" s; status {int(sol.status)}, iterations "
+            f"{int(sol.iterations)}, prim {float(sol.prim_res):.3e}, dual "
+            f"{float(sol.dual_res):.3e}; u {ctrl.tolist()} ({card})")
+    if smpc["card"].n_D != 2 + S * 400:
+        raise AssertionError(f"stacked QP n_D={smpc['card'].n_D}")
+    ctrl_cpu = smpc["cpu"].step(x0s, um1, biases)[0]
+    stacked_ms, (ctrl, _) = median_ms(
+        lambda: smpc["card"].step(x0s, um1, biases))
+    err = float(np.abs(ctrl - ctrl_cpu).max() / np.abs(ctrl_cpu).max())
+    if err > 1e-4:
+        raise AssertionError(f"stacked: card {ctrl} vs CPU {ctrl_cpu}")
+    # the host's part of a step: the two float64 products with the
+    # whitening factor of the stacked Hessian, O(n_D^2) each
+    q_D = np.ones(smpc["card"].n_D)
+    tri_ms = median_ms(lambda: scipy.linalg.solve_triangular(
+        smpc["card"]._L, q_D, lower=True))[0]
+    back_ms = median_ms(lambda: smpc["card"]._L_invT @ q_D)[0]
+
+    # the consensus problem. The default rho_consensus, the mean diagonal
+    # of the condensed Hessian's du_0 block (2.1e10 here), holds the
+    # scenarios together long before their first moves reach the stacked
+    # optimum: after 40 outer iterations the reference's control is 0.2
+    # from it (CPU, both packages alike). The curvature each scenario's
+    # cost has in du_0 once its recourse moves are minimized out, the
+    # mean diagonal of that block's Schur complement (1.9e6), converges.
+    P_dd = scenario_mpc.condense(lin, K.P, K.M, K.Q, K.R, K.ysp,
+                                 u_bounds=u_bounds).P_dd
+    ni = lin.Ni
+    schur = P_dd[:ni, :ni] - P_dd[:ni, ni:] @ np.linalg.solve(
+        P_dd[ni:, ni:], P_dd[ni:, :ni])
+    rho_c = float(np.trace(schur) / ni)
+    consts, settings, dims = consensus_consts(
+        lin, K.P, K.M, K.Q, K.R, K.ysp, u_bounds=u_bounds,
+        rho_consensus=rho_c, device=dev)
+    step = make_consensus_scenario_step(settings, dims, n_outer=40)
+    cons_ms, (cons, gap, worst) = median_ms(
+        lambda: step(consts, t32(x0s), t32(um1), t32(biases)))
+    cons = cons.cpu().numpy().astype(float)
+    cons_err = float(np.abs(cons - ctrl).max())
+    if int(worst) != cqp.SOLVED or float(gap) >= 1e-3 or cons_err > 2e-3:
+        raise AssertionError(f"consensus: worst {int(worst)}, gap "
+                             f"{float(gap):.3e}, u {cons} vs stacked {ctrl}")
+
+    # the independent solves against single solves of their rows. At
+    # 1e-6 the MPC's float32 ADMM stops at max_iter on some rows, the
+    # reference's too: the phase fails if more rows stop unsolved than
+    # the reference's REF_UNSOLVED, or if any row is found infeasible
+    solve = make_scenario_solver(K)
+    um1s = np.tile(um1, (S, 1))
+    solo_ms, (ctrls, preds, st) = median_ms(
+        lambda: solve(t32(x0s), t32(um1s), t32(biases)))
+    unsolved = [i for i, v in enumerate(st.tolist()) if v != cqp.SOLVED]
+    if len(unsolved) > REF_UNSOLVED or any(
+            st[i] != cqp.MAX_ITER_REACHED for i in unsolved):
+        raise AssertionError(f"independent solves: statuses {st.tolist()}, "
+                             f"the reference {REF_UNSOLVED} unsolved")
+    c_dev, step_fn = make_device_step(K)
+    n_d, m = (K.M + 1) * K.Ni, K.qp.m
+    solo_err = 0.0
+    for i in range(S):
+        one = step_fn(c_dev, t32(x0s[i]), t32(um1), t32(biases[i]),
+                      torch.zeros(n_d, device=dev),
+                      torch.zeros(m, device=dev))[0]
+        solo_err = max(solo_err, float((one - ctrls[i]).abs().max()))
+    if solo_err > 1e-4:
+        raise AssertionError(f"independent solves: {solo_err:.3e} from the "
+                             f"single solves")
+
+    # the binding case: an outlier pressing its output bounds
+    case = rig.binding_case()
+    lin_b = LinearModel(*case["model"], 1.0, np.zeros(2), np.zeros(2),
+                        np.zeros(2), np.zeros(2))
+    args_b = (case["P"], case["M"], case["Q"], case["R"], lin_b, case["ysp"])
+    sm = {where: ScenarioMPC(*args_b, n_scenarios=4,
+                             y_bounds=case["y_bounds"], device=device)
+          for where, device in (("card", dev), ("cpu", "cpu"))}
+    scen = (case["x0s"], case["um1"], case["biases"])
+    got = {where: s_mpc.step(*scen)[0] for where, s_mpc in sm.items()}
+    du0, moves = sm["card"].last_moves()
+    y_free = sm["card"]._y_free(*scen)
+    slack = max(float(np.max(np.abs(y_free[s] + sm["card"]._cd.theta @ (
+        np.concatenate([du0, moves[s].reshape(-1)]))) - 0.8))
+        for s in range(4))
+    binding_ms, _ = median_ms(lambda: sm["card"].step(*scen))
+    K_b = MPC(*args_b, y_bounds=case["y_bounds"], device=dev)
+    mean, _, st_b = make_scenario_solver(K_b)(
+        t32(case["x0s"].mean(0)[None]), t32(case["um1"][None]),
+        t32(case["biases"].mean(0)[None]))
+    hedge = float(np.abs(got["card"] - mean[0].cpu().numpy()).max())
+    bind_err = float(np.abs(got["card"] - got["cpu"]).max())
+    if int(st_b[0]) != cqp.SOLVED or hedge <= 1e-3 or slack > 1e-3 \
+            or bind_err > 1e-4:
+        raise AssertionError(f"binding case: hedge {hedge:.3e}, bound "
+                             f"overshoot {slack:.3e}, card vs CPU "
+                             f"{bind_err:.3e}")
+    expect_counts("scenario MPC (f)", read_counts(), {})
+    metric = {
+        "metric": "scenario_mpc_ms_S16_P300_M200", "unit": "ms",
+        "stacked_step_ms": stacked_ms,
+        "stacked_host_triangular_ms": tri_ms,
+        "stacked_host_back_product_ms": back_ms,
+        "consensus_step_ms": cons_ms, "independent_solves_ms": solo_ms,
+        "binding_step_ms": binding_ms,
+        "independent_unsolved": len(unsolved),
+        "stacked_card_vs_cpu_rel": err, "consensus_vs_stacked": cons_err,
+        "consensus_gap": float(gap), "rho_consensus": rho_c,
+        "independent_vs_single": solo_err, "binding_hedge": hedge,
+        "binding_card_vs_cpu": bind_err,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    log(f"scenario (f): stacked step {stacked_ms:.3f} ms median of "
+        f"{TIMED_CALLS} (warm; its host products with the whitening "
+        f"factor: triangular solve {tri_ms:.3f} ms, back-product "
+        f"{back_ms:.3f} ms), card vs CPU rel {err:.2e}; consensus "
+        f"(n_outer=40, rho_c {rho_c:.6g}) {cons_ms:.3f} ms, gap "
+        f"{float(gap):.3e}, worst {int(worst)}, u {cons.tolist()} vs "
+        f"stacked {ctrl.tolist()} ({cons_err:.2e}); independent solves of "
+        f"{S} rows {solo_ms:.3f} ms, statuses {st.tolist()} (the reference "
+        f"{REF_UNSOLVED} unsolved), {solo_err:.2e} from single solves; "
+        f"binding case {binding_ms:.3f}"
+        f" ms, hedge {hedge:.3e}, bound overshoot {slack:.2e}, card vs CPU "
+        f"{bind_err:.2e}; phase {metric['phase_s']:.1f} s ({card})")
+    return metric
+
+
+def power_limit_w(card: str) -> float:
+    """The watts of ``nvidia-smi``'s ``power.limit`` in the card line."""
+    return float(card.rsplit(",", 1)[1].split()[0])
+
+
+def phase_instrumentation(dev, seed: int, card: str) -> dict:
+    """(g) The instrumentation on the flat ``ParticleFilter`` step under
+    the auto route: ``RunSequences`` over 2^16, 2^18 and 2^20 particles
+    (``RUN_SEQ_RUNS`` chained runs each, timed in chunks of 5 with one
+    synchronise a chunk, as ``results/_filter_bench.time_op`` times
+    them) with each sequence's ``max_abs_pacf``; ``PowerMeasurement``
+    over ``POWER_T_RUN`` s of steps at 2^20; a ``StateCheckpointer``
+    resume at 2^20 that must equal the unbroken run bit for bit."""
+    t_phase = time.perf_counter()
+    x0, state_pdf, meas_pdf = harness_rig(dev)
+    f, g = bio.homeostatic_des, bio.static_outputs
+    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
+    z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
+    dt = 0.1
+    kernels = ROUTE_KERNELS["auto"]
+
+    def filt(n):
+        return pf.ParticleFilter(f, g, n, x0, state_pdf, meas_pdf, seed=seed)
+
+    @RunSequences.vectorize
+    def run_seq(n, runs):
+        fl = filt(n)
+        zero_counts()
+        fl.step(u, z, dt)
+        torch.cuda.synchronize()
+        out = np.empty(runs)
+        done = 0
+        while done < runs:
+            c = min(RUN_SEQ_CHUNK, runs - done)
+            t0 = time.perf_counter()
+            for _ in range(c):
+                fl.step(u, z, dt)
+            torch.cuda.synchronize()
+            out[done:done + c] = (time.perf_counter() - t0) / c * 1e3
+            done += c
+        expect_counts(f"run sequence, n={n}", read_counts(),
+                      {k: runs + 1 for k in kernels})
+        return out
+
+    ns, seqs = run_seq(RUN_SEQ_NS, RUN_SEQ_RUNS)
+    pacfs = [max_abs_pacf(sq, 10) for sq in seqs]
+    for n, sq, p in zip(ns, seqs, pacfs):
+        log(f"run sequence (g), n={n}: {RUN_SEQ_RUNS} chained flat steps "
+            f"(auto), median {np.median(sq):.4f} ms/step, p10 "
+            f"{np.percentile(sq, 10):.4f}, p90 {np.percentile(sq, 90):.4f};"
+            f" max |pacf| over lags 1-10 {p:.3f} (gate 0.2: "
+            f"{'passes' if p < 0.2 else 'fails'}; printed, not failed on) "
+            f"({card})")
+
+    fl = filt(N)
+    fl.step(u, z, dt)
+    torch.cuda.synchronize()
+
+    def steps_for(n, t_run):
+        t0, k = time.perf_counter(), 0
+        while time.perf_counter() - t0 < t_run:
+            for _ in range(10):
+                fl.step(u, z, dt)
+            torch.cuda.synchronize()
+            k += 10
+        return k
+
+    zero_counts()
+    measured = PowerMeasurement(steps_for)
+    steps, (e_cpu, e_card) = measured(N, POWER_T_RUN)
+    expect_counts("power, n=2^20", read_counts(), {k: steps for k in kernels})
+    span = float(measured.last_samples[0, -1] - measured.last_samples[0, 0])
+    watts = e_card / span
+    limit = power_limit_w(card)
+    if not (np.isfinite(e_card) and e_card > 0 and watts <= 1.05 * limit):
+        raise AssertionError(f"power: card energy {e_card} J over {span:.2f}"
+                             f" s against a limit of {limit} W")
+    log(f"power (g), n={N}: {steps} flat steps in {span:.2f} s, "
+        f"{measured.last_samples.shape[1]} samples; card {e_card:.2f} J "
+        f"({e_card / steps:.4f} J/step, mean {watts:.1f} W of the "
+        f"{limit:.0f} W limit); CPU {e_cpu:.2f} J ({e_cpu / steps:.4f} "
+        f"J/step at the default 30 W; NaN where the host's CPU counters do "
+        f"not advance) ({card})")
+
+    # checkpoint, two steps, restore, the same two steps
+    ckpt_dir = os.path.join(REPO, "chiprun_out", "smoke_checkpoint")
+    zero_counts()
+    ckpt = StateCheckpointer(ckpt_dir, max_to_keep=1)
+    state = fl.state
+    ckpt.save(0, state)
+
+    def two_steps(s):
+        for _ in range(2):
+            s = pf.step(s, u, z, dt, f, g, state_pdf, meas_pdf)
+        return s
+
+    first = two_steps(state)
+    again = two_steps(ckpt.restore(state))
+    ckpt.close()
+    shutil.rmtree(ckpt_dir)
+    expect_counts("checkpoint resume", read_counts(), {k: 4 for k in kernels})
+    if not (torch.equal(first.particles, again.particles)
+            and torch.equal(first.weights, again.weights)):
+        raise AssertionError("checkpoint: the resumed steps differ")
+    metric = {
+        "metric": "instrumentation_flat_pf", "unit": "ms/step",
+        "run_seq_median_ms": {int(n): float(np.median(sq))
+                              for n, sq in zip(ns, seqs)},
+        "max_abs_pacf": {int(n): float(p) for n, p in zip(ns, pacfs)},
+        "power_steps": steps, "power_span_s": span,
+        "card_j_per_step": float(e_card / steps),
+        # null where the host's CPU counters gave no reading (NaN)
+        "cpu_j_per_step": float(e_cpu / steps) if np.isfinite(e_cpu)
+        else None,
+        "card_mean_w": float(watts),
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    log(f"checkpoint (g), n={N}: saved, two steps, restored, the same two "
+        f"steps: bit-equal; phase {metric['phase_s']:.1f} s ({card})")
+    return metric
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1834,6 +2194,8 @@ def main() -> int:
         "card": card,
     }
     phase_first_qp(dev, card)
+    scenario_metric = phase_scenario(dev, card)
+    instr_metric = phase_instrumentation(dev, args.seed, card)
     times.update(merge_times)
     bounds.update(merge_bounds)
     # no single PyTorch call computes any of these functions (each is a
@@ -1854,6 +2216,8 @@ def main() -> int:
     print(json.dumps(gsukf_metric))
     print(json.dumps(mpc_metric))
     print(json.dumps(loop_metric))
+    print(json.dumps(scenario_metric))
+    print(json.dumps(instr_metric))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,4 @@
-"""The dense ADMM QP and the condensed MPC.
-
-The reference's ``ScenarioMPC`` and ``consensus_consts``
-(``control/scenario_mpc.py``) are not ported yet: they come with the
-scenario-MPC slice.
-"""
+"""The dense ADMM QP, the condensed MPC and the scenario MPC."""
 from gpu_se_tpu_torch.control.mpc import MPC, build_prediction_matrices
 from gpu_se_tpu_torch.control.qp import (
     DUAL_INFEASIBLE,
@@ -14,9 +9,12 @@ from gpu_se_tpu_torch.control.qp import (
     QPSettings,
     QPSolution,
 )
+from gpu_se_tpu_torch.control.scenario_mpc import ScenarioMPC, consensus_consts
 
 __all__ = [
     "MPC",
+    "ScenarioMPC",
+    "consensus_consts",
     "build_prediction_matrices",
     "DenseQP",
     "QPSettings",

@@ -31,6 +31,7 @@ only the Ni input rows).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -42,8 +43,10 @@ from gpu_se_tpu_torch.control.qp import (
     SOLVED,
     DenseQP,
     QPSettings,
+    QPSolution,
     _admm_solve,
     _f32_matmul,
+    _mv,
 )
 from gpu_se_tpu_torch.models.linear import LinearModel
 
@@ -340,7 +343,7 @@ def _extract(consts, v):
 def make_device_step(mpc: "MPC"):
     """Return ``(consts, step_fn)`` where ``step_fn(consts, x0, um1, bias,
     warm_v, warm_y) -> (ctrl, y_pred, sol)`` runs entirely on the MPC's
-    device, in float32."""
+    device, in float32, on one set of vectors or on a batch of them."""
     h = mpc._h
     dt, device = mpc.qp.settings.dtype, mpc.qp.device
 
@@ -370,39 +373,53 @@ def make_device_step(mpc: "MPC"):
     settings = mpc.qp.settings
 
     def step_fn(c, x0, um1, bias, warm_v, warm_y):
+        """One solve on vectors, or a batch of solves when every input
+        has a leading batch axis: each member's products are per-member
+        ``bmm`` calls, so a member equals its single solve bit for bit."""
+        single = x0.dim() == 1
+        if single:
+            x0, um1, bias, warm_v, warm_y = (
+                t.unsqueeze(0) for t in (x0, um1, bias, warm_v, warm_y))
         with _f32_matmul():
-            return _step(c, x0, um1, bias, warm_v, warm_y)
+            ctrl, y_pred, sol = _step(c, x0, um1, bias, warm_v, warm_y)
+        if single:
+            ctrl, y_pred = ctrl[0], y_pred[0]
+            sol = QPSolution(*(getattr(sol, f.name)[0]
+                               for f in dataclasses.fields(sol)))
+        return ctrl, y_pred, sol
 
     def _step(c, x0, um1, bias, warm_v, warm_y):
+        b = x0.shape[0]
+
         def through_q(parts):
             qx, qu, qb, q0 = parts
-            return qx @ x0 + qu @ um1 + qb @ bias - q0
+            return _mv(qx, x0) + _mv(qu, um1) + _mv(qb, bias) - q0
 
         l_parts, u_parts = [], []
         if has_y:
-            y_free = c["F_x"] @ x0 + c["F_u"] @ um1 + torch.kron(c["k_vec"], bias)
+            y_free = _mv(c["F_x"], x0) + _mv(c["F_u"], um1) + (
+                c["k_vec"][None, :, None] * bias[:, None, :]).reshape(b, -1)
             l_parts.append(c["y_lo"] - y_free)
             u_parts.append(c["y_hi"] - y_free)
         if has_du:
-            l_parts.append(c["du_lo"])
-            u_parts.append(c["du_hi"])
+            l_parts.append(c["du_lo"].expand(b, -1))
+            u_parts.append(c["du_hi"].expand(b, -1))
         if has_u0:
             l_parts.append(c["u_lo"] - um1)
             u_parts.append(c["u_hi"] - um1)
         if l_parts:
             aq = through_q(c["A_q"])
-            l = torch.cat(l_parts) + aq
-            u = torch.cat(u_parts) + aq
+            l = torch.cat(l_parts, dim=1) + aq
+            u = torch.cat(u_parts, dim=1) + aq
         else:
-            l = x0.new_zeros(0)
-            u = x0.new_zeros(0)
+            l = x0.new_zeros((b, 0))
+            u = x0.new_zeros((b, 0))
 
         sol = _admm_solve(c["qp"], torch.zeros_like(warm_v), l, u, warm_v,
                           warm_y, settings)
-        ctrl = -through_q(c["ctrl_q"]) + um1 + c["ctrl_map"] @ sol.x
-        y1 = c["F_x0"] @ x0 + c["F_u0"] @ um1 + bias - through_q(c["y1_q"]) + (
-            c["theta0_w"] @ sol.x
-        )
+        ctrl = -through_q(c["ctrl_q"]) + um1 + _mv(c["ctrl_map"], sol.x)
+        y1 = _mv(c["F_x0"], x0) + _mv(c["F_u0"], um1) + bias - through_q(
+            c["y1_q"]) + _mv(c["theta0_w"], sol.x)
         return ctrl, y1 - bias, sol
 
     return consts, step_fn

@@ -25,6 +25,8 @@ that takes its place here:
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from gpu_se_tpu_torch.ops import _build
@@ -33,12 +35,24 @@ from gpu_se_tpu_torch.ops.resample_coarse import blocked_cummax, blocked_cumsum
 MAX_ROWS = 8
 
 
-def normalized_cumsum(weights: torch.Tensor) -> torch.Tensor:
-    """The merge's ``cs``: the float32 cumsum of ``weights`` divided by
-    its last entry (a device scalar, so the division is exact IEEE on a
-    card too), then made non-decreasing by a running max."""
+def normalized_cumsum(weights: torch.Tensor, r) -> torch.Tensor:
+    """The merge's keys ``cs``: the float32 cumsum of ``weights`` divided
+    by its last entry (a device scalar, so the division is exact IEEE on
+    a card too), then made non-decreasing by a running max.
+
+    Weights without a finite positive sum (all 0, a sum that overflows, a
+    NaN) give a NaN quotient from some entry on. The reference's XLA
+    route converts ``floor(n q_k - r)`` to ``ends_k`` with NaN as 0 and
+    gives every slot the first entry ``a`` of the last run of ``ends``;
+    the keys are then ``-inf`` before ``a`` and ``+inf`` from it, which
+    are sorted and give that ancestor through the merge's count. ``r`` is
+    the float32 uniform of the resample.
+    """
     cs = blocked_cumsum(weights.to(torch.float32))
-    return blocked_cummax(cs / cs[-1])
+    q = cs / cs[-1]
+    ends = torch.nan_to_num(torch.floor(q.shape[0] * q - r), nan=0.0)
+    no_sum = torch.where(ends < ends[-1], -math.inf, math.inf)
+    return torch.where(torch.isnan(q[-1]), no_sum, blocked_cummax(q))
 
 
 def _positions(n: int, r: torch.Tensor) -> torch.Tensor:
@@ -107,7 +121,7 @@ def merge_entry(particles: torch.Tensor, weights: torch.Tensor, r,
     if nx > MAX_ROWS:
         raise ValueError(f"payload of {nx} columns exceeds {MAX_ROWS}")
     out, anc = cumsum_merge(
-        normalized_cumsum(weights),
+        normalized_cumsum(weights, r),
         particles.to(torch.float32).T.contiguous(), r)
     return out.T, anc
 

@@ -5,8 +5,9 @@ inputs, and the tests and ``chip_smoke.py`` recompute the noise and
 inputs the fixtures do not store. It also holds the edge cases
 that the CPU tests, the card tests and ``chip_smoke.py`` put ``compact``,
 ``expand``, ``ends_merge_round``, ``cumsum_merge`` and ``coarse_gather``
-through. The module
-imports numpy only, so the card, which has no JAX, can import it.
+through, and the inputs of the scenario MPC that ``chip_smoke.py``
+solves on the card. The module imports numpy only, so the card, which
+has no JAX, can import it.
 """
 from __future__ import annotations
 
@@ -120,6 +121,23 @@ def edge_payload(rows: int, n: int, seed: int = 0):
     return rng.random((rows, n), dtype=np.float32) - np.float32(0.5)
 
 
+# weights without a finite positive sum: all 0, finite weights whose sum
+# overflows (the second half float32's max), one NaN
+NO_SUM_KINDS = ("zeros", "overflow", "nan")
+
+
+def no_sum_weights(kind: str, n: int):
+    """``(n,)`` float32 weights of a ``NO_SUM_KINDS`` case."""
+    w = np.ones(n, np.float32)
+    if kind == "zeros":
+        w[:] = 0.0
+    elif kind == "overflow":
+        w[n // 2:] = np.finfo(np.float32).max
+    else:
+        w[n // 3] = np.nan
+    return w
+
+
 # ----------------------------------------------------------------------
 # edge cases of the merge-path kernels: ends_merge_round, cumsum_merge
 # ----------------------------------------------------------------------
@@ -188,3 +206,47 @@ def coarse_cases():
 def ring_bounds(n: int, parts: int) -> list[int]:
     """``parts + 1`` ascending bounds that split ``[0, n)``."""
     return [n * k // parts for k in range(parts + 1)]
+
+
+# ----------------------------------------------------------------------
+# the scenario MPC: chip_smoke.py phase (f)
+# ----------------------------------------------------------------------
+SCENARIOS = 16                      # scenarios at the canonical rig's width
+SCENARIO_SEED = 8
+# the spread of each scenario's initial state about the first step's
+# x2d, in the linear model's deviation units (g/L of Cg and Cfa)
+SCENARIO_SCALE = 0.25
+
+
+def scenario_offsets(n: int, nx: int, seed: int = SCENARIO_SEED):
+    """``(n, nx)`` float64 normal offsets of scale ``SCENARIO_SCALE``."""
+    return np.random.default_rng(seed).normal(scale=SCENARIO_SCALE,
+                                              size=(n, nx))
+
+
+def stable_model(seed: int):
+    """``(A, B, C, D)`` of ``tests/test_mpc.random_stable_lin_model(seed,
+    with_d=False)``: two states, inputs and outputs, A of spectral radius
+    0.8, D zero."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(2, 2))
+    A = 0.8 * A / np.max(np.abs(np.linalg.eigvals(A)))
+    B = rng.normal(size=(2, 2))
+    C = rng.normal(size=(2, 2))
+    D = rng.normal(size=(2, 2)) * 0.0
+    return A, B, C, D
+
+
+def binding_case():
+    """``tests/test_scenario_mpc._binding_setup``'s case: the seed-11
+    model, P = 8, M = 3, four scenarios with one outlier whose outputs
+    alone reach the +-0.8 output bounds. Returns a dict of ``model (A, B,
+    C, D)``, ``P``, ``M``, ``Q``, ``R``, ``ysp``, ``x0s``, ``um1``,
+    ``biases`` and ``y_bounds``."""
+    return dict(
+        model=stable_model(11), P=8, M=3, Q=np.eye(2),
+        R=0.5 * np.eye(2), ysp=np.array([0.3, -0.2]),
+        x0s=np.array([[0.1, 0.05], [-0.1, 0.02], [0.05, -0.08], [1.6, 1.2]]),
+        um1=np.zeros(2), biases=np.zeros((4, 2)),
+        y_bounds=[np.array([-0.8, 0.8]), np.array([-0.8, 0.8])],
+    )

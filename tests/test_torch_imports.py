@@ -29,7 +29,10 @@ def test_imports_with_jax_blocked():
                  "filters.particle", "filters.resampling", "pytree", "rig",
                  "models.base", "models.bioreactor", "models.cstr",
                  "models.tanks", "models.linear", "control", "control.qp",
-                 "control.mpc", "sim", "sim.harness", "sim.loop"):
+                 "control.mpc", "control.scenario_mpc", "sim", "sim.harness",
+                 "sim.loop", "parallel", "parallel.scenario", "config",
+                 "utils", "utils.cache", "utils.checkpoint", "utils.power",
+                 "utils.run_sequences", "utils.stats"):
         assert f"gpu_se_tpu_torch.{name}" in mods
     code = (
         "import sys\n"
@@ -98,14 +101,31 @@ EXPORTS += [("gpu_se_tpu_torch.control", name, f"gpu_se_tpu_torch.control.{mod}"
                 ("mpc", ("MPC", "build_prediction_matrices")),
                 ("qp", ("DenseQP", "QPSettings", "QPSolution", "SOLVED",
                         "MAX_ITER_REACHED", "PRIMAL_INFEASIBLE",
-                        "DUAL_INFEASIBLE")))
+                        "DUAL_INFEASIBLE")),
+                ("scenario_mpc", ("ScenarioMPC", "consensus_consts")))
+            for name in names]
+EXPORTS += [("gpu_se_tpu_torch.parallel", name,
+             "gpu_se_tpu_torch.parallel.scenario")
+            for name in ("make_scenario_solver", "make_consensus_scenario_step")]
+EXPORTS += [("gpu_se_tpu_torch.utils", name, f"gpu_se_tpu_torch.utils.{mod}")
+            for mod, names in (
+                ("cache", ("PickleJar", "global_cache_settings")),
+                ("checkpoint", ("StateCheckpointer",)),
+                ("power", ("PowerMeasurement", "accelerator_probe_available")),
+                ("run_sequences", ("RunSequences",)),
+                ("stats", ("acf", "pacf", "max_abs_pacf")))
             for name in names]
 EXPORTS += [("gpu_se_tpu_torch.sim", name, "gpu_se_tpu_torch.sim.harness")
             for name in ("Simulation", "get_parts", "get_noise",
                          "get_random_io", "performance")]
 # the reference's names the port does not export yet, by package: the
-# scenario MPC comes with its own slice
-TO_PORT = {"gpu_se_tpu_torch.control": {"ScenarioMPC", "consensus_consts"}}
+# mesh and the sharded steps come with the multi-device slice
+TO_PORT = {"gpu_se_tpu_torch.parallel": {
+    "PARTICLE_AXIS", "make_mesh", "particle_sharding", "replicated",
+    "make_auto_sharded_step", "make_shard_map_step",
+    "make_shard_map_tiled_step", "make_shard_map_gsukf_step",
+    "shard_tiled_pf_state", "shard_pf_state", "shard_gsukf_state",
+    "make_auto_sharded_gsukf_step", "initialize_distributed", "global_mesh"}}
 # the ops modules whose docstrings map the reference's entry names
 OPS_MAPS = ("resample_pallas4", "resample_pallas_block", "resample_pallas3",
             "resample_pallas", "resample_coarse")
@@ -129,7 +149,9 @@ def test_package_exports_the_reference_names(package, name, module):
 
 @pytest.mark.parametrize("package", ["gpu_se_tpu_torch.models",
                                      "gpu_se_tpu_torch.control",
-                                     "gpu_se_tpu_torch.sim"])
+                                     "gpu_se_tpu_torch.sim",
+                                     "gpu_se_tpu_torch.parallel",
+                                     "gpu_se_tpu_torch.utils"])
 def test_package_exports_every_reference_name(package):
     """Each of these packages exports the reference's names, less those
     ``TO_PORT`` lists, and nothing else."""

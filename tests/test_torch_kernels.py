@@ -201,7 +201,7 @@ def test_merge_kernels_equal_plain_on_card(cuda, n, family):
     rng = np.random.default_rng(n)
     w_d, r_d = torch.from_numpy(w).to(cuda), torch.tensor(r, device=cuda)
     ends = ends_from_weights(w_d, r_d)
-    cs = rp3.normalized_cumsum(w_d)
+    cs = rp3.normalized_cumsum(w_d, r_d)
     launches = (rpb.ends_merge_round.launches, rp3.cumsum_merge.launches)
     for nx in (5, 30):
         parts = torch.from_numpy(
@@ -301,7 +301,7 @@ def test_router_auto_routes_launch_their_kernels_on_card(cuda):
     c1 = counts()
     assert (c1[0] - c0[0], c1[1] - c0[1]) == (1, 1)
     got, _ = rs.systematic_resample_from_r(x8, w, r)
-    want, _ = rp3.cumsum_merge_plain(rp3.normalized_cumsum(w),
+    want, _ = rp3.cumsum_merge_plain(rp3.normalized_cumsum(w, r),
                                      x8.T.contiguous(), r)
     assert torch.equal(got, want.T)
     c2 = counts()
@@ -353,6 +353,30 @@ def test_router_all_zero_weights_on_card(cuda, route, kernel):
         assert rp4.compact.launches == launches + 1
         assert torch.equal(gm.cpu(), first)
         assert torch.equal(gc.cpu(), covs[:1].expand(n, 5, 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", rig.NO_SUM_KINDS)
+@pytest.mark.parametrize("route", ["v3", "pallas"])
+def test_merge_routes_without_a_finite_sum_on_card(cuda, route, kind):
+    """Weights without a finite positive sum at 2^20: the cumsum-merge
+    routes launch ``cumsum_merge`` and give what the CPU route gives, one
+    particle in every slot (``test_torch_resample_router.py`` holds the
+    CPU route to the reference's XLA route)."""
+    n = 2**20
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32))
+    w = torch.from_numpy(rig.no_sum_weights(kind, n))
+    r = torch.tensor(np.float32(0.37))
+    with rs.impl(route):
+        want, _ = rs.systematic_resample_from_r(x, w, r)
+        launches = rp3.cumsum_merge.launches
+        got, _ = rs.systematic_resample_from_r(x.to(cuda), w.to(cuda),
+                                               r.to(cuda))
+        torch.cuda.synchronize()
+    assert rp3.cumsum_merge.launches == launches + 1
+    assert torch.equal(want, want[:1].expand(n, 5))
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu
@@ -674,9 +698,9 @@ def test_ends_merge_round_edge_cases_on_card(cuda, case):
 def test_cumsum_merge_edge_cases_on_card(cuda, case):
     family, n, rows = case
     w, r = rig.edge_weights(family, n)
-    cs = rp3.normalized_cumsum(torch.from_numpy(w).to(cuda))
-    payload = torch.from_numpy(rig.edge_payload(rows, n)).to(cuda)
     r = torch.tensor(r, device=cuda)
+    cs = rp3.normalized_cumsum(torch.from_numpy(w).to(cuda), r)
+    payload = torch.from_numpy(rig.edge_payload(rows, n)).to(cuda)
     launches = rp3.cumsum_merge.launches
     for g, wt in zip(rp3.cumsum_merge(cs, payload, r),
                      rp3.cumsum_merge_plain(cs, payload, r)):

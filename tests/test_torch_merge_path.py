@@ -69,7 +69,7 @@ def _ends(family, n):
 
 def _cs(family, n):
     w, r = rig.edge_weights(family, n)
-    return trp3.normalized_cumsum(torch.from_numpy(w)).numpy(), r
+    return trp3.normalized_cumsum(torch.from_numpy(w), r).numpy(), r
 
 
 def positions(n, r):

@@ -40,7 +40,7 @@ from gpu_se_tpu.ops import resample_pallas3 as jrp3
 from gpu_se_tpu.ops import resample_pallas4 as jrp4
 from gpu_se_tpu.ops import resample_pallas_block as jrb
 from gpu_se_tpu.ops.resample_coarse import ends_from_weights as j_ends
-from gpu_se_tpu_torch import pytree
+from gpu_se_tpu_torch import pytree, rig
 from gpu_se_tpu_torch.filters import resampling as trs
 from gpu_se_tpu_torch.ops import _build
 from gpu_se_tpu_torch.ops import resample_coarse as trc
@@ -251,8 +251,8 @@ def test_merge_entries_keep_geometry_contract():
 
 
 def test_normalized_cumsum_is_monotone_and_ends_at_one():
-    _, w, _ = _case(8192, "heavy")
-    cs = trp3.normalized_cumsum(_t(w))
+    _, w, r = _case(8192, "heavy")
+    cs = trp3.normalized_cumsum(_t(w), _t(r))
     assert cs.dtype == torch.float32 and float(cs[-1]) == 1.0
     assert bool(torch.all(cs[1:] >= cs[:-1]))
     np.testing.assert_allclose(cs.numpy(), _jax_cs(w), rtol=1e-5, atol=1e-7)
@@ -273,7 +273,7 @@ def test_cross_route_tie_count(family):
             r = np.float32(rng.random())
             tw, tr = _t(w), _t(r)
             merged = trp3.cumsum_merge_plain(
-                trp3.normalized_cumsum(tw), torch.zeros((1, n)), tr)[1]
+                trp3.normalized_cumsum(tw, tr), torch.zeros((1, n)), tr)[1]
             by_ends = trs.indices_from_ends(trs.ends_from_weights(tw, tr))
             differ["port"] += int(torch.count_nonzero(merged != by_ends))
             cs = jnp.asarray(_jax_cs(w))
@@ -656,28 +656,17 @@ def test_merges_copy_signed_zero_and_non_finite_rows_exactly():
 # ----------------------------------------------------------------------
 # weights without a finite positive sum
 # ----------------------------------------------------------------------
-def _no_sum_weights(kind, n):
-    w = np.ones(n, np.float32)
-    if kind == "zeros":
-        w[:] = 0.0
-    elif kind == "overflow":        # finite weights whose sum is inf
-        w[n // 2:] = np.finfo(np.float32).max
-    else:
-        w[n // 3] = np.nan
-    return w
-
-
-@pytest.mark.parametrize("kind", ["zeros", "overflow", "nan"])
+@pytest.mark.parametrize("kind", rig.NO_SUM_KINDS)
 @pytest.mark.parametrize("route", ["auto", "xla", "ends", "v4", "coarse",
-                                   "bank"])
+                                   "bank", "v3", "pallas"])
 def test_weights_without_a_finite_sum_follow_the_reference(kind, route):
     """A NaN normalized cumsum: every slot takes the ancestor the
     reference's XLA route gives (the first entry of the last run of
-    ``ends``), on every route but the cumsum merges', whose keys are the
-    NaN cumsum itself."""
+    ``ends``), on every route: the cumsum merges take it through their
+    keys (``-inf`` before it, ``+inf`` from it)."""
     n = 4096
     parts, _, r = _case(n, "near_uniform")
-    w = _no_sum_weights(kind, n)
+    w = rig.no_sum_weights(kind, n)
     want = parts[np.asarray(jrs.systematic_resample_indices(
         jnp.asarray(w), jnp.asarray(r)))]
     ends = trc.ends_from_weights(_t(w), _t(r))
@@ -692,3 +681,19 @@ def test_weights_without_a_finite_sum_follow_the_reference(kind, route):
         else:
             got, _ = trs.systematic_resample_from_r(_t(parts), _t(w), _t(r))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", rig.NO_SUM_KINDS)
+def test_merge_routes_without_a_finite_sum_follow_the_reference_v1(kind):
+    """The port's ``pallas`` and ``v3`` routes on such weights give the
+    rows and ancestors of the reference's v1 Pallas merge
+    (``impl("interpret")``), which are its XLA route's."""
+    n = 4096
+    parts, _, r = _case(n, "near_uniform")
+    w = rig.no_sum_weights(kind, n)
+    want, want_anc = jrp1.pallas_systematic_resample(
+        jnp.asarray(parts), jnp.asarray(w), jnp.asarray(r), interpret=True)
+    for entry in (trp1.systematic_resample, trp3.systematic_resample_pipelined):
+        got, anc = entry(_t(parts), _t(w), _t(r))
+        np.testing.assert_array_equal(anc.numpy(), np.asarray(want_anc))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
