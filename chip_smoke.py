@@ -111,7 +111,31 @@ Phases, each of which raises on failure:
     ``PowerMeasurement`` over 5 s of steps at 2^20 (fails unless the
     card's energy is finite, positive and its mean power under 105% of
     the power limit) and a ``StateCheckpointer`` resume at 2^20 that must
-    equal the unbroken run bit for bit.
+    equal the unbroken run bit for bit;
+14. (h) the multi-device slice (``gpu_se_tpu_torch/parallel``): at W = 1,
+    a one-rank NCCL group in this process (one ``all_reduce`` on the
+    card, then a mesh of one, whose collectives launch nothing): the
+    sharded flat step at 2^20 (``bench.py``'s rig) through each route
+    (``xla``, ``kernel``: ends merge, ``a2a``: compact + expand over the
+    ragged exchange, ``a2a_xla``, ``a2a_ring``, ``a2a_ring_v4``: compact
+    + expand over the ring), each equal to the plain gather at the same
+    segmented ``ends`` bit for bit, its device-to-host copies a step
+    counted by ``torch.profiler``, then 10 chained steps timed; the
+    sharded tiled step at 2^20 with both exchanges (bit-equal to each
+    other, its resample to the ring route's); the sharded GSUKF step at
+    2^18 (``xla``, ``kernel`` on the 30-column bank, ``a2a``), routes
+    bit-equal; the auto-sharded steps against the single-device steps
+    and (f)'s scenario solvers through a mesh of one against
+    ``mesh=None``, bit for bit; each route's kernels launched as it
+    says. Then W = 2: two spawned processes on this card over gloo (NCCL
+    refuses two ranks on one card; gloo copies through the host), 2^20
+    particles each of 2^21, the ``kernel``, ``a2a`` and tiled ``ragged``
+    resamples equal to W = 1's on the same global input bit for bit;
+    then the entry points from each rank's slice of one global state:
+    ``make_shard_map_step`` (``kernel``, ``a2a``), its first step equal
+    to W = 1's bit for bit, and ``make_shard_map_tiled_step``
+    (``ragged``), finite, each launching its kernels on both ranks and
+    timed over 5 steps.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel's ``launches`` is the sum over the paths. Every
@@ -125,8 +149,8 @@ a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
-``nvidia-smi`` line, the six metric JSON lines (tiled PF, GSUKF, MPC,
-closed loop, scenario MPC, instrumentation) and, last, ``{"ok": true,
+``nvidia-smi`` line, the seven metric JSON lines (tiled PF, GSUKF, MPC,
+closed loop, scenario MPC, instrumentation, multi-device) and, last, ``{"ok": true,
 "device": {...}}``. Run from the
 repository root::
 
@@ -150,6 +174,7 @@ import time
 import numpy as np
 import scipy.linalg
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -179,6 +204,9 @@ from gpu_se_tpu_torch.control.mpc import make_device_step  # noqa: E402
 from gpu_se_tpu_torch.models import LinearModel  # noqa: E402
 from gpu_se_tpu_torch.parallel import make_consensus_scenario_step  # noqa: E402
 from gpu_se_tpu_torch.parallel import make_scenario_solver  # noqa: E402
+from gpu_se_tpu_torch import parallel as par  # noqa: E402
+from gpu_se_tpu_torch.parallel import sharded  # noqa: E402
+from gpu_se_tpu_torch.parallel.launch import free_port, run_group  # noqa: E402
 from gpu_se_tpu_torch.utils import PowerMeasurement, RunSequences  # noqa: E402
 from gpu_se_tpu_torch.utils import StateCheckpointer, max_abs_pacf  # noqa: E402
 
@@ -208,6 +236,15 @@ RUN_SEQ_NS = (2**16, 2**18, 2**20)   # (g)'s run sequences
 RUN_SEQ_RUNS = 50
 RUN_SEQ_CHUNK = 5
 POWER_T_RUN = 5.0         # seconds of steps under PowerMeasurement in (g)
+SHARD_STEPS = 10          # chained sharded steps timed a route in (h)
+N_W2 = 2**21              # (h)'s global particles at W = 2 (2^20 a rank)
+W2_TIMEOUT_S = 300
+# (h): the kernels each sharded route launches once a step at W = 1
+SHARD_FLAT = {"xla": (), "kernel": ("ends_merge_round",),
+              "a2a": ("compact", "expand"), "a2a_xla": (), "a2a_ring": (),
+              "a2a_ring_v4": ("compact", "expand")}
+SHARD_GSUKF = {"xla": (), "kernel": ("ends_merge_round",), "a2a": ()}
+SHARD_TILED = ("ragged", "ring")
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "data", "torch_parity_step.npz")
 GSUKF_FIXTURE = os.path.join(REPO, "tests", "data",
@@ -1874,14 +1911,15 @@ def median_ms(fn, calls: int = TIMED_CALLS):
     return float(np.median(times)), out
 
 
-def phase_scenario(dev, card: str) -> dict:
+def phase_scenario(dev, card: str):
     """(f) The scenario MPC at the canonical rig's full width (dt_control
     = 1: P = 300, M = 200, Ni = No = 2, u bounds only) over ``rig.
     SCENARIOS`` scenarios about (e)'s first-step ``x2d``, ``um1`` (e)'s,
     zero biases: the stacked ``ScenarioMPC`` on the card against a CPU
     copy, the consensus step against the stacked control, the independent
     solves against single solves, then the binding case of
-    ``tests/test_scenario_mpc.py`` on the card against the CPU."""
+    ``tests/test_scenario_mpc.py`` on the card against the CPU. Returns
+    the metric and the rig (h) solves again through a mesh of one."""
     t_phase = time.perf_counter()
     zero_counts()
     plant, lin, K, _ = harness.get_parts(dt_control=1, device=dev)
@@ -2029,7 +2067,9 @@ def phase_scenario(dev, card: str) -> dict:
         f"binding case {binding_ms:.3f}"
         f" ms, hedge {hedge:.3e}, bound overshoot {slack:.2e}, card vs CPU "
         f"{bind_err:.2e}; phase {metric['phase_s']:.1f} s ({card})")
-    return metric
+    scen = {"K": K, "x0s": t32(x0s), "um1": t32(um1), "um1s": t32(um1s),
+            "biases": t32(biases), "consensus": (consts, settings, dims)}
+    return metric, scen
 
 
 def power_limit_w(card: str) -> float:
@@ -2154,6 +2194,355 @@ def phase_instrumentation(dev, seed: int, card: str) -> dict:
     return metric
 
 
+# ----------------------------------------------------------------------
+# (h) the multi-device slice
+# ----------------------------------------------------------------------
+def chained_ms(step, state, steps: int = SHARD_STEPS):
+    """``(ms per step by CUDA events, last state)`` of ``steps`` chained
+    calls of ``step`` after one untimed call."""
+    state = step(state)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        state = step(state)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, state
+
+
+def host_reads(fn) -> tuple[int, int]:
+    """``(device-to-host copies, device ops)`` of one call of ``fn`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e.name for e in prof.events() if e.device_type == cuda]
+    return sum("DtoH" in n for n in ops), len(ops)
+
+
+def w2_inputs(seed: int):
+    """(h)'s global resample input at W = 2: ``(particles (N_W2, 5),
+    lognormal weights of sigma 4, r)``, float32 from the seed."""
+    rng = np.random.default_rng(seed + 21)
+    return (rng.standard_normal((N_W2, 5)).astype(np.float32),
+            np.exp(4.0 * rng.standard_normal(N_W2)).astype(np.float32),
+            np.float32(0.417))
+
+
+def shard_step_args(dev):
+    """``(f, g, u, z, dt)`` of (h)'s sharded steps: the bench rig's model
+    at the steady state's outputs."""
+    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
+    z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
+    return (bio.homeostatic_des, bio.static_outputs, u, z,
+            torch.tensor(0.1, device=dev))
+
+
+W2_ROUTES = ("kernel", "a2a", "tiled ragged")
+# (h)'s entry points at W = 2 and the kernels each launches a step
+W2_STEPS = {"flat kernel": ("ends_merge_round",),
+            "flat a2a": ("compact", "expand"),
+            "tiled ragged": ("compact", "expand")}
+W2_TIMED = 5              # steps timed a W = 2 entry point
+
+
+def w2_resample(mesh, name, parts, w, r):
+    """This rank's rows (``(n_local, 5)``) of one of ``W2_ROUTES``."""
+    if name == "tiled ragged":
+        ends, prev = sharded._segmented_ends(w, r, mesh)
+        return sharded._a2a_compact_exchange_merge(
+            parts.T.contiguous(), ends, prev, mesh, "ragged").T
+    return sharded._resample(parts, w, r, mesh,
+                             sharded._FLAT_ROUTES[name])[0]
+
+
+def w2_step(mesh, name, seed: int):
+    """``(state, step)`` of one of ``W2_STEPS`` on this rank: its slice of
+    the bench rig's global state of N_W2 particles, drawn from the seed
+    on the mesh's device, and the entry point's step on it."""
+    dev = mesh.device
+    x0, state_pdf, meas_pdf = bench_rig(dev)
+    f, g, u, z, dt = shard_step_args(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    kind, route = name.split()
+    if kind == "flat":
+        state = par.shard_pf_state(pf.init(gen, N_W2, x0), mesh)
+        fn = par.make_shard_map_step(mesh, f, g, resample_impl=route)
+    else:
+        state = par.shard_tiled_pf_state(pft.init(gen, N_W2, x0), mesh)
+        fn = par.make_shard_map_tiled_step(mesh, f, g, exchange=route)
+    return state, lambda s: fn(s, u, z, dt, state_pdf, meas_pdf)
+
+
+def w2_rank(seed: int):
+    """One rank of (h)'s W = 2 run (a spawned process of a gloo group,
+    both ranks on card 0): each route's resampled rows and launches, then
+    each entry point's first step, its launches and its ms a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = par.make_mesh()
+    torch.cuda.set_device(mesh.device)
+    p_np, w_np, r_np = w2_inputs(seed)
+    parts = par.particle_sharding(mesh, p_np)
+    w = par.particle_sharding(mesh, w_np)
+    r = torch.tensor(r_np, device=mesh.device)
+    rows = {}
+    for name in W2_ROUTES:
+        zero_counts()
+        got = w2_resample(mesh, name, parts, w, r)
+        torch.cuda.synchronize()
+        rows[name] = (got.cpu().numpy(), read_counts())
+    steps = {}
+    for name in W2_STEPS:
+        state, step = w2_step(mesh, name, seed)
+        zero_counts()
+        state = step(state)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        first = tuple(t.cpu().numpy() for t in (
+            (state.x,) if name.startswith("tiled")
+            else (state.particles, state.weights)))
+        times = []
+        for _ in range(W2_TIMED):
+            dist.barrier()
+            t0 = time.perf_counter()
+            state = step(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        steps[name] = (first, counts, float(np.median(times)))
+    return mesh.rank, str(mesh.device), rows, steps
+
+
+def phase_multi_device(dev, seed: int, card: str, scen) -> dict:
+    """(h) The multi-device slice: at W = 1 under NCCL in this process,
+    every sharded route of the flat (2^20), tiled (2^20) and GSUKF (2^18)
+    steps, the auto-sharded steps and (f)'s scenario solvers through a
+    mesh of one; then W = 2 as two processes on this card over gloo."""
+    t_phase = time.perf_counter()
+    par.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        mesh = par.make_mesh()
+        if (mesh.size, mesh.device, mesh.backend) != (1, dev, "nccl"):
+            raise AssertionError(f"mesh {mesh}")
+        metric = {"metric": "multi_device_ms_per_step", "unit": "ms/step",
+                  "w1": multi_w1(dev, seed, card, scen, mesh)}
+    finally:
+        dist.destroy_process_group()
+    metric["w2"] = multi_w2(dev, seed, card)
+    metric.update(phase_s=time.perf_counter() - t_phase, card=card)
+    log(f"multi-device (h): phase {metric['phase_s']:.1f} s ({card})")
+    return metric
+
+
+def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
+    x0, state_pdf, meas_pdf = bench_rig(dev)
+    f, g, u, z, dt = shard_step_args(dev)
+    ms = {}
+
+    def gen(k=0):
+        return torch.Generator(device=dev).manual_seed(seed + k)
+
+    # the flat step: every route on one input, then chained and timed
+    start = pf.init(gen(), N, x0)
+    noise = state_pdf.draw(start.generator, (N,))
+    r = torch.rand((), generator=start.generator, device=dev)
+    xn = pf.predict_from_noise(start.particles, u, dt, f, noise)
+    wn = pf.update(pf.PFState(xn, start.weights, None), u, z, g,
+                   meas_pdf).weights
+    ends, _ = sharded._segmented_ends(wn, r, mesh)
+    plain = xn[torch.clamp(rc.indices_from_ends(ends), max=N - 1).long()]
+    for name, kernels in SHARD_FLAT.items():
+        step = par.make_shard_map_step(mesh, f, g, resample_impl=name)
+        zero_counts()
+        got, _ = step.from_noise(start.particles, start.weights, u, z, dt,
+                                 meas_pdf, noise, r)
+        assert_equal(f"sharded flat {name} vs plain", (got,), (plain,))
+        reads, ops = host_reads(lambda: step.from_noise(
+            start.particles, start.weights, u, z, dt, meas_pdf, noise, r))
+        ms[f"flat {name}"], last = chained_ms(
+            lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
+            pf.PFState(start.particles, start.weights, gen(1)))
+        expect_counts(f"sharded flat step, {name}", read_counts(),
+                      {k: SHARD_STEPS + 3 for k in kernels})
+        if not torch.isfinite(last.particles).all():
+            raise AssertionError(f"sharded flat {name}: non-finite")
+        log(f"multi-device (h), W=1 NCCL, flat step {name} at n={N}: "
+            f"{ms[f'flat {name}']:.4f} ms/step ({SHARD_STEPS} chained, CUDA "
+            f"events); == plain resample bit for bit; one step: {reads} "
+            f"device-to-host copies, {ops} device ops ({card})")
+
+    # the tiled step: both exchanges from one state, then the resample
+    # of one step against the ring route
+    tiled0 = pft.init(gen(2), N, x0)
+    outs = {}
+    for exchange in SHARD_TILED:
+        step = par.make_shard_map_tiled_step(mesh, f, g, exchange=exchange)
+        zero_counts()
+        ms[f"tiled {exchange}"], last = chained_ms(
+            lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
+            par.shard_tiled_pf_state(tiled0, mesh))
+        expect_counts(f"sharded tiled step, {exchange}", read_counts(),
+                      {"compact": SHARD_STEPS + 1, "expand": SHARD_STEPS + 1})
+        outs[exchange] = last.x
+        log(f"multi-device (h), W=1 NCCL, tiled step {exchange} at n={N}: "
+            f"{ms[f'tiled {exchange}']:.4f} ms/step ({card})")
+    assert_equal("sharded tiled ragged vs ring", (outs["ragged"],),
+                 (outs["ring"],))
+    x = outs["ragged"]
+    w = torch.rand(N, generator=gen(3), device=dev)
+    ends, prev = sharded._segmented_ends(w, r, mesh)
+    got = sharded._a2a_compact_exchange_merge(x, ends, prev, mesh, "ragged")
+    want, _ = sharded._distributed_systematic_resample(x.T, w, r, mesh)
+    assert_equal("sharded tiled resample vs ring route", (got.T,), (want,))
+
+    # the GSUKF step at 2^18: every route on one input, then timed
+    n_b, nx = N_BANK, 5
+    g0 = gsf.init(gen(4), n_b, x0, state_pdf)
+    g_noise = state_pdf.draw_t(g0.generator, n_b * (2 * nx + 1)).reshape(
+        nx, 2 * nx + 1, n_b).transpose(0, 1)
+    g_r = torch.rand((), generator=g0.generator, device=dev)
+    first = None
+    for name, kernels in SHARD_GSUKF.items():
+        step = par.make_shard_map_gsukf_step(mesh, f, g, resample_impl=name)
+        zero_counts()
+        (m, c), _ = step.from_noise(g0.means, g0.covariances, g0.weights, u,
+                                    z, dt, meas_pdf, g_noise, g_r)
+        first = first or (m, c)
+        assert_equal(f"sharded GSUKF {name} vs xla", (m, c), first)
+        ms[f"gsukf {name}"], last = chained_ms(
+            lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
+            gsf.GSUKFState(g0.means, g0.covariances, g0.weights, gen(5)),
+            steps=3)
+        expect_counts(f"sharded GSUKF step, {name}", read_counts(),
+                      {k: 5 for k in kernels})
+        if not torch.isfinite(last.covariances).all():
+            raise AssertionError(f"sharded GSUKF {name}: non-finite")
+        log(f"multi-device (h), W=1 NCCL, GSUKF step {name} at N={n_b}: "
+            f"{ms[f'gsukf {name}']:.4f} ms/step ({card})")
+
+    # the auto-sharded steps against the single-device steps
+    zero_counts()
+    got = par.make_auto_sharded_step(mesh, f, g)(
+        par.shard_pf_state(pf.PFState(start.particles, start.weights,
+                                      gen(6)), mesh),
+        u, z, dt, state_pdf, meas_pdf)
+    want = pf.step(pf.PFState(start.particles, start.weights, gen(6)), u, z,
+                   dt, f, g, state_pdf, meas_pdf)
+    assert_equal("auto-sharded flat step", (got.particles, got.weights),
+                 (want.particles, want.weights))
+    got = par.make_auto_sharded_gsukf_step(mesh, f, g)(
+        par.shard_gsukf_state(gsf.GSUKFState(g0.means, g0.covariances,
+                                             g0.weights, gen(7)), mesh),
+        u, z, dt, state_pdf, meas_pdf)
+    want = gsf.step(gsf.GSUKFState(g0.means, g0.covariances, g0.weights,
+                                   gen(7)), u, z, dt, f, g, state_pdf,
+                    meas_pdf)
+    assert_equal("auto-sharded GSUKF step", (got.means, got.covariances),
+                 (want.means, want.covariances))
+    expect_counts("auto-sharded steps", read_counts(),
+                  {"compact": 4, "expand": 4})
+    log(f"multi-device (h), W=1 NCCL: auto-sharded flat (n={N}) and GSUKF "
+        f"(N={n_b}) steps == single-device steps bit for bit ({card})")
+
+    # (f)'s scenario rig through a mesh of one
+    K = scen["K"]
+    args = (scen["x0s"], scen["um1s"], scen["biases"])
+    for a, b in zip(make_scenario_solver(K, mesh)(*args),
+                    make_scenario_solver(K)(*args)):
+        assert_equal("scenario solver, mesh of one", (a,), (b,))
+    consts, settings, dims = scen["consensus"]
+    cargs = (consts, scen["x0s"], scen["um1"], scen["biases"])
+    for a, b in zip(
+            make_consensus_scenario_step(settings, dims, mesh)(*cargs),
+            make_consensus_scenario_step(settings, dims)(*cargs)):
+        assert_equal("consensus step, mesh of one", (a,), (b,))
+    log(f"multi-device (h), W=1 NCCL: (f)'s independent solves and "
+        f"consensus step through a mesh of one == mesh=None bit for bit "
+        f"({card})")
+    return ms
+
+
+def multi_w2(dev, seed: int, card: str) -> dict:
+    """W = 2: two spawned processes on this card over gloo (NCCL refuses
+    two ranks on one card), each with 2^20 of the 2^21 particles. Every
+    route's rows, and the first step of the flat entry point, equal
+    W = 1's on the same global input; the tiled entry point, whose noise
+    depends on the width, steps to finite particles. Each launches its
+    kernels on every rank."""
+    p_np, w_np, r_np = w2_inputs(seed)
+    one = par.make_mesh(1, device=dev)
+    parts, w = torch.from_numpy(p_np).to(dev), torch.from_numpy(w_np).to(dev)
+    r = torch.tensor(r_np, device=dev)
+    want = {name: w2_resample(one, name, parts, w, r).cpu().numpy()
+            for name in W2_ROUTES}
+    want_step = {}
+    for name in W2_STEPS:
+        if name.startswith("flat"):
+            state, step = w2_step(one, name, seed)
+            out = step(state)
+            want_step[name] = (out.particles.cpu().numpy(),
+                               out.weights.cpu().numpy())
+    t0 = time.perf_counter()
+    ranks = run_group(w2_rank, 2, seed, timeout_s=W2_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+
+    def same(got, want_):
+        return np.array_equal(got.view(np.int32), want_.view(np.int32))
+
+    def check_counts(name, counts, kernels):
+        for c in counts:
+            if any(c[k] < 1 for k in kernels) or any(
+                    v for k, v in c.items() if k not in kernels):
+                raise AssertionError(f"W=2 {name}: launches {counts}")
+
+    for name in W2_ROUTES:
+        got = np.concatenate([rows[name][0] for _, _, rows, _ in ranks])
+        if not same(got, want[name]):
+            raise AssertionError(f"W=2 {name}: rows differ from W=1's")
+        counts = [rows[name][1] for _, _, rows, _ in ranks]
+        kernels = (("ends_merge_round",) if name == "kernel"
+                   else ("compact", "expand"))
+        check_counts(name, counts, kernels)
+        log(f"multi-device (h), W=2 (two processes on card 0, gloo with "
+            f"host copies), {name} resample at n={N_W2} (2^20 a rank, "
+            f"lognormal weights): == W=1 bit for bit; launches "
+            f"{[{k: c[k] for k in kernels} for c in counts]} ({card})")
+    ms = {}
+    for name, kernels in W2_STEPS.items():
+        firsts = [steps[name][0] for _, _, _, steps in ranks]
+        counts = [steps[name][1] for _, _, _, steps in ranks]
+        check_counts(name, counts, kernels)
+        if name in want_step:
+            for k, field in enumerate(("particles", "weights")):
+                got = np.concatenate([f[k] for f in firsts])
+                if not same(got, want_step[name][k]):
+                    raise AssertionError(
+                        f"W=2 {name} step: {field} differ from W=1's")
+            verdict = "== W=1 bit for bit"
+        else:
+            if not all(np.isfinite(f[0]).all() for f in firsts):
+                raise AssertionError(f"W=2 {name} step: non-finite")
+            verdict = "finite (its noise depends on the width)"
+        ms[name] = [steps[name][2] for _, _, _, steps in ranks]
+        log(f"multi-device (h), W=2 (two processes on card 0, gloo with "
+            f"host copies), {name} step at n={N_W2} (2^20 a rank): "
+            f"{ms[name][0]:.3f} / {ms[name][1]:.3f} ms/step (rank 0 / 1, "
+            f"median of {W2_TIMED}, host clock); first step {verdict}; "
+            f"launches {[{k: c[k] for k in kernels} for c in counts]} "
+            f"({card})")
+    log(f"multi-device (h), W=2: devices {[d for _, d, _, _ in ranks]}, "
+        f"{wall:.1f} s with the start-up ({card})")
+    return ms
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2194,8 +2583,9 @@ def main() -> int:
         "card": card,
     }
     phase_first_qp(dev, card)
-    scenario_metric = phase_scenario(dev, card)
+    scenario_metric, scen = phase_scenario(dev, card)
     instr_metric = phase_instrumentation(dev, args.seed, card)
+    multi_metric = phase_multi_device(dev, args.seed, card, scen)
     times.update(merge_times)
     bounds.update(merge_bounds)
     # no single PyTorch call computes any of these functions (each is a
@@ -2218,6 +2608,7 @@ def main() -> int:
     print(json.dumps(loop_metric))
     print(json.dumps(scenario_metric))
     print(json.dumps(instr_metric))
+    print(json.dumps(multi_metric))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,7 +30,9 @@ def test_imports_with_jax_blocked():
                  "models.base", "models.bioreactor", "models.cstr",
                  "models.tanks", "models.linear", "control", "control.qp",
                  "control.mpc", "control.scenario_mpc", "sim", "sim.harness",
-                 "sim.loop", "parallel", "parallel.scenario", "config",
+                 "sim.loop", "parallel", "parallel.scenario",
+                 "parallel.mesh", "parallel.distributed", "parallel._comm",
+                 "parallel.sharded", "parallel.launch", "config",
                  "utils", "utils.cache", "utils.checkpoint", "utils.power",
                  "utils.run_sequences", "utils.stats"):
         assert f"gpu_se_tpu_torch.{name}" in mods
@@ -105,8 +107,20 @@ EXPORTS += [("gpu_se_tpu_torch.control", name, f"gpu_se_tpu_torch.control.{mod}"
                 ("scenario_mpc", ("ScenarioMPC", "consensus_consts")))
             for name in names]
 EXPORTS += [("gpu_se_tpu_torch.parallel", name,
-             "gpu_se_tpu_torch.parallel.scenario")
-            for name in ("make_scenario_solver", "make_consensus_scenario_step")]
+             f"gpu_se_tpu_torch.parallel.{mod}")
+            for mod, names in (
+                ("scenario", ("make_scenario_solver",
+                              "make_consensus_scenario_step")),
+                ("mesh", ("PARTICLE_AXIS", "make_mesh", "particle_sharding",
+                          "replicated")),
+                ("distributed", ("initialize_distributed", "global_mesh")),
+                ("sharded", ("make_auto_sharded_step", "make_shard_map_step",
+                             "make_shard_map_tiled_step",
+                             "make_shard_map_gsukf_step",
+                             "shard_tiled_pf_state", "shard_pf_state",
+                             "shard_gsukf_state",
+                             "make_auto_sharded_gsukf_step")))
+            for name in names]
 EXPORTS += [("gpu_se_tpu_torch.utils", name, f"gpu_se_tpu_torch.utils.{mod}")
             for mod, names in (
                 ("cache", ("PickleJar", "global_cache_settings")),
@@ -118,14 +132,8 @@ EXPORTS += [("gpu_se_tpu_torch.utils", name, f"gpu_se_tpu_torch.utils.{mod}")
 EXPORTS += [("gpu_se_tpu_torch.sim", name, "gpu_se_tpu_torch.sim.harness")
             for name in ("Simulation", "get_parts", "get_noise",
                          "get_random_io", "performance")]
-# the reference's names the port does not export yet, by package: the
-# mesh and the sharded steps come with the multi-device slice
-TO_PORT = {"gpu_se_tpu_torch.parallel": {
-    "PARTICLE_AXIS", "make_mesh", "particle_sharding", "replicated",
-    "make_auto_sharded_step", "make_shard_map_step",
-    "make_shard_map_tiled_step", "make_shard_map_gsukf_step",
-    "shard_tiled_pf_state", "shard_pf_state", "shard_gsukf_state",
-    "make_auto_sharded_gsukf_step", "initialize_distributed", "global_mesh"}}
+# the reference's names the port does not export yet, by package
+TO_PORT = {}
 # the ops modules whose docstrings map the reference's entry names
 OPS_MAPS = ("resample_pallas4", "resample_pallas_block", "resample_pallas3",
             "resample_pallas", "resample_coarse")

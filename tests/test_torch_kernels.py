@@ -830,3 +830,70 @@ def test_qp_graph_matches_cpu_on_card(cuda, identity):
                              np.stack([u, u]))
     assert batch.status.tolist() == [qp.SOLVED] * 2
     assert np.abs(batch.x[0].cpu().numpy() - x).max() <= 1e-4 * np.abs(x).max()
+
+
+# ----------------------------------------------------------------------
+# the sharded protocols on the card (parallel/sharded.py)
+# ----------------------------------------------------------------------
+SHARD_N = 2**16
+# the kernels each sharded flat route launches at W = 1
+SHARD_ROUTES = {"xla": (), "kernel": ("ends_merge_round",),
+                "a2a": ("compact", "expand"), "a2a_xla": (), "a2a_ring": (),
+                "a2a_ring_v4": ("compact", "expand")}
+LAUNCHES = {"compact": rp4.compact, "expand": rp4.expand,
+            "ends_merge_round": rpb.ends_merge_round}
+
+
+def _shard_rows(family, route):
+    """This rank's rows of the sharded resample of ``_case(SHARD_N,
+    family)`` through ``route`` on the rank's card, with the launches it
+    made."""
+    from gpu_se_tpu_torch.parallel import make_mesh, particle_sharding
+    from gpu_se_tpu_torch.parallel import sharded
+
+    mesh = make_mesh()
+    parts, w, r = _case(SHARD_N, family)
+    for k in LAUNCHES.values():
+        k.launches = 0
+    out, _ = sharded._resample(
+        particle_sharding(mesh, parts.T), particle_sharding(mesh, w),
+        torch.tensor(r, device=mesh.device), mesh,
+        sharded._FLAT_ROUTES[route])
+    return (out.cpu().numpy(),
+            {name: k.launches for name, k in LAUNCHES.items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+def test_sharded_routes_launch_their_kernels_on_card(cuda, family):
+    """At W = 1 (no process group) every sharded flat route launches its
+    kernels once and gives the rows of the plain gather at the same
+    segmented ``ends``, bit for bit."""
+    from gpu_se_tpu_torch.parallel import make_mesh
+    from gpu_se_tpu_torch.parallel import sharded
+
+    parts, w, r = _case(SHARD_N, family)
+    x = torch.from_numpy(parts.T.copy()).to(cuda)
+    ends, _ = sharded._segmented_ends(torch.from_numpy(w).to(cuda),
+                                      torch.tensor(r, device=cuda),
+                                      make_mesh(device=cuda))
+    want = x[torch.clamp(rc.indices_from_ends(ends), max=SHARD_N - 1).long()]
+    for route, kernels in SHARD_ROUTES.items():
+        got, counts = _shard_rows(family, route)
+        np.testing.assert_array_equal(got, want.cpu().numpy(), err_msg=route)
+        assert counts == {k: int(k in kernels) for k in LAUNCHES}, route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["kernel", "a2a", "a2a_ring_v4"])
+def test_two_ranks_on_one_card_over_gloo(cuda, route):
+    """Two spawned ranks share the card over gloo, which copies each
+    exchanged buffer through the host: their rows equal W = 1's."""
+    from gpu_se_tpu_torch.parallel.launch import run_group
+
+    want, _ = _shard_rows("heavy", route)
+    ranks = run_group(_shard_rows, 2, "heavy", route, timeout_s=300)
+    np.testing.assert_array_equal(np.concatenate([g for g, _ in ranks]),
+                                  want)
+    for _, counts in ranks:
+        assert all(counts[k] >= 1 for k in SHARD_ROUTES[route]), counts

@@ -269,14 +269,29 @@ def test_consensus_restores_the_matmul_precision():
 
 
 def test_mesh_is_the_multi_device_slice():
-    lin, *_ = _binding()
+    """Both entries take a mesh; on a mesh of one rank (the CPU, no
+    process group) they give ``mesh=None``'s results bit for bit. Wider
+    meshes are held to the reference's in ``tests/test_torch_sharding.py``.
+    """
+    from gpu_se_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device=CPU)
     _, K = _make_mpcs()
-    _, settings, dims = consensus_consts(
-        _port_lin(lin), _P_HOR, _M_HOR, Q, R, YSP, device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_scenario_solver(K, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_consensus_scenario_step(settings, dims, mesh=object())
+    rng = np.random.default_rng(1)
+    x0s = _t(rng.normal(scale=0.3, size=(4, 2)))
+    args = (x0s, torch.zeros((4, 2)), _t(rng.normal(scale=0.05, size=(4, 2))))
+    for a, b in zip(make_scenario_solver(K, mesh)(*args),
+                    make_scenario_solver(K)(*args)):
+        assert torch.equal(a, b)
+    lin, x0s, um1, biases, bounds = _binding()
+    consts, settings, dims = consensus_consts(
+        _port_lin(lin), _P_HOR, _M_HOR, Q, R, YSP, device=CPU, **bounds)
+    scen = (consts, _t(x0s), _t(um1), _t(biases))
+    for a, b in zip(
+            make_consensus_scenario_step(settings, dims, mesh,
+                                         n_outer=5)(*scen),
+            make_consensus_scenario_step(settings, dims, n_outer=5)(*scen)):
+        assert torch.equal(a, b)
 
 
 def test_rig_binding_case_is_the_references():
