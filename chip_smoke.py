@@ -135,7 +135,23 @@ Phases, each of which raises on failure:
     ``make_shard_map_step`` (``kernel``, ``a2a``), its first step equal
     to W = 1's bit for bit, and ``make_shard_map_tiled_step``
     (``ragged``), finite, each launching its kernels on both ranks and
-    timed over 5 steps.
+    timed over 5 steps;
+15. (i) the experiments layer (``gpu_se_tpu_torch/results``), through the
+    entry points the campaign calls, with the jar under a temporary
+    directory: the PF run sequences (predict, update, resample, step) on
+    the card at 2^1, 2^12, 2^20 and 2^23.5 (the top of the reference's
+    grid, an odd n) and on the CPU at 2^1 and 2^10, the GSF's (predict,
+    update, resample, sigma points) at 2^0, 2^10 and 2^18.5 and the
+    timer control, 10 runs each, every time finite and positive, and
+    ``compact`` and ``expand`` launched once a call of every op that
+    resamples at n >= 2^12 and never otherwise; ``breakdown_pf`` at 2^18;
+    ``pacf_series`` (8 steps, 20 reps) beside the chunked step sequence's
+    max |pacf|; ``pf_power.step_energy`` over 2 s at 2^20 (the card's J
+    finite, positive and under 105% of the power limit over the window);
+    ``get_sim_summary`` and ``get_sim_summary_device`` of the PF at 2^20
+    and of the GSF at 2^14 to t = 2 (``compact`` and ``expand`` once a
+    control event); ``mpc_run_seq(n_runs=20)`` and ``device_solve_ms()``
+    at dt_control = 0.1 and ``get_simulation_performance(30.0, 0)``.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel's ``launches`` is the sum over the paths. Every
@@ -149,8 +165,9 @@ a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
-``nvidia-smi`` line, the seven metric JSON lines (tiled PF, GSUKF, MPC,
-closed loop, scenario MPC, instrumentation, multi-device) and, last, ``{"ok": true,
+``nvidia-smi`` line, the eight metric JSON lines (tiled PF, GSUKF, MPC,
+closed loop, scenario MPC, instrumentation, multi-device, experiments)
+and, last, ``{"ok": true,
 "device": {...}}``. Run from the
 repository root::
 
@@ -168,6 +185,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -209,6 +227,21 @@ from gpu_se_tpu_torch.parallel import sharded  # noqa: E402
 from gpu_se_tpu_torch.parallel.launch import free_port, run_group  # noqa: E402
 from gpu_se_tpu_torch.utils import PowerMeasurement, RunSequences  # noqa: E402
 from gpu_se_tpu_torch.utils import StateCheckpointer, max_abs_pacf  # noqa: E402
+from gpu_se_tpu_torch.utils import cache as jar_cache  # noqa: E402
+from gpu_se_tpu_torch.results import pacf_series as exp_pacf  # noqa: E402
+from gpu_se_tpu_torch.results.bioreactor_closedloop import (  # noqa: E402
+    mpc_run_seq as exp_mpc,
+    performance_vs_control_period as exp_pvcp,
+)
+from gpu_se_tpu_torch.results.gsf_closedloop import (  # noqa: E402
+    bioreactor_performance_gsf as exp_gsf_cl,
+)
+from gpu_se_tpu_torch.results.gsf_openloop import gsf_run_seq as exp_gsf  # noqa: E402
+from gpu_se_tpu_torch.results.pf_closedloop import (  # noqa: E402
+    bioreactor_performance_pf as exp_pf_cl,
+)
+from gpu_se_tpu_torch.results.pf_openloop import pf_power as exp_power  # noqa: E402
+from gpu_se_tpu_torch.results.pf_openloop import pf_run_seq as exp_pf  # noqa: E402
 
 N = 2**20
 N_BANK = 2**18
@@ -237,6 +270,17 @@ RUN_SEQ_RUNS = 50
 RUN_SEQ_CHUNK = 5
 POWER_T_RUN = 5.0         # seconds of steps under PowerMeasurement in (g)
 SHARD_STEPS = 10          # chained sharded steps timed a route in (h)
+# (i) the experiments, at the top of the reference's grids
+EXP_PF_LOG2 = (1.0, 12.0, 20.0, 23.5)
+EXP_PF_CPU_LOG2 = (1.0, 10.0)
+EXP_GSF_LOG2 = (0.0, 10.0, 18.5)
+EXP_RUNS = 10
+EXP_BREAKDOWN_N = 2**18
+EXP_PACF_K, EXP_PACF_REPS = 8, 20
+EXP_POWER_T_RUN = 2.0
+EXP_LOOP_END = 2
+EXP_GSF_LOOP_N = 2**14
+EXP_MPC_RUNS = 20
 N_W2 = 2**21              # (h)'s global particles at W = 2 (2^20 a rank)
 W2_TIMEOUT_S = 300
 # (h): the kernels each sharded route launches once a step at W = 1
@@ -2543,6 +2587,182 @@ def multi_w2(dev, seed: int, card: str) -> dict:
     return ms
 
 
+# ----------------------------------------------------------------------
+# (i) the experiments layer
+# ----------------------------------------------------------------------
+def exp_counts(path: str, n: int, calls: int, resamples: bool) -> None:
+    """``compact`` and ``expand`` once a call of an op that resamples at
+    a size the router sends to them (n >= 2^12 on the card), else none."""
+    k = calls if resamples and n >= 2**12 else 0
+    expect_counts(path, read_counts(), {"compact": k, "expand": k})
+
+
+def exp_run_seqs(name: str, entries, log2s, gpu: bool, card: str) -> dict:
+    """Each entry's run sequence at each size with the counts zeroed
+    before it and read after it; every time finite and positive. Returns
+    the medians in ms."""
+    medians = {}
+    for op, fn, resamples in entries:
+        for log2 in log2s:
+            n = int(2.0 ** log2)
+            zero_counts()
+            _, (seq,) = fn(np.array([n]), EXP_RUNS, gpu)
+            exp_counts(f"(i) {name} {op}, n={n}, gpu={gpu}", n,
+                       EXP_RUNS + 1 if gpu else 0, resamples)
+            if seq.shape != (EXP_RUNS,) or not (np.isfinite(seq).all()
+                                                and (seq > 0).all()):
+                raise AssertionError(f"(i) {name} {op} n={n}: {seq}")
+            medians[f"{op}@2^{log2:g}"] = float(np.median(seq)) * 1e3
+    leg = card if gpu else "CPU"
+    log(f"experiments (i), {name} run sequences on {leg}, {EXP_RUNS} runs, "
+        f"median ms: " + ", ".join(f"{k} {v:.4f}" for k, v in medians.items())
+        + f" ({card})")
+    return medians
+
+
+def exp_summary(path: str, fn, n: int, events: int, card: str) -> dict:
+    """One closed-loop summary at ``EXP_LOOP_END`` with ``compact`` and
+    ``expand`` launched ``events`` times."""
+    zero_counts()
+    s = fn(n, DT_CONTROL, DT_CONTROL, 0, end_time=EXP_LOOP_END)
+    expect_counts(path, read_counts(), {"compact": events, "expand": events})
+    if not (np.isfinite(s["performance"]) and 0 <= s["mpc_frac"] <= 1
+            and s["runtime"] >= 0):
+        raise AssertionError(f"{path}: {s}")
+    util = exp_pf_cl.utilization(s, DT_CONTROL)
+    log(f"{path}, n={n}, end_time={EXP_LOOP_END}: ITSE "
+        f"{s['performance']:.6g}, mpc_frac {s['mpc_frac']:.3f}, runtime "
+        f"{s['runtime']:.3f} s, utilisation {util:.4f} ({card})")
+    return {"itse": float(s["performance"]), "runtime_s": s["runtime"],
+            "utilization": util, "mpc_frac": s["mpc_frac"]}
+
+
+def phase_experiments(dev, card: str) -> dict:
+    """(i) The experiments, through the entry points a campaign calls,
+    with the jar under a temporary directory: the PF and GSF run
+    sequences at the top of the reference's grids (2^23.5 and 2^18.5),
+    the breakdown, the pacf series, energy per step, the closed-loop
+    summaries and the MPC run sequence."""
+    t_phase = time.perf_counter()
+    old_root = os.environ.get(jar_cache.ROOT_ENV)
+    with tempfile.TemporaryDirectory(prefix="smoke_jar_") as jar:
+        os.environ[jar_cache.ROOT_ENV] = jar
+        try:
+            metric = experiments(dev, card)
+        finally:
+            if old_root is None:
+                del os.environ[jar_cache.ROOT_ENV]
+            else:
+                os.environ[jar_cache.ROOT_ENV] = old_root
+    metric.update(phase_s=time.perf_counter() - t_phase, card=card)
+    log(f"experiments (i): phase {metric['phase_s']:.1f} s ({card})")
+    return metric
+
+
+def experiments(dev, card: str) -> dict:
+    pf_entries = [("predict", exp_pf.predict_run_seq, False),
+                  ("update", exp_pf.update_run_seq, False),
+                  ("resample", exp_pf.resample_run_seq, True),
+                  ("step", exp_pf.step_run_seq, True)]
+    gsf_entries = [("predict", exp_gsf.predict_run_seq, False),
+                   ("update", exp_gsf.update_run_seq, False),
+                   ("resample", exp_gsf.resample_run_seq, True),
+                   ("sigma_points", exp_gsf.sigma_points_run_seq, False)]
+    metric = {"metric": "experiments", "unit": "ms",
+              "pf_run_seq_card": exp_run_seqs("PF", pf_entries, EXP_PF_LOG2,
+                                              True, card),
+              "pf_run_seq_cpu": exp_run_seqs("PF", pf_entries,
+                                             EXP_PF_CPU_LOG2, False, card),
+              "gsf_run_seq_card": exp_run_seqs("GSF", gsf_entries,
+                                               EXP_GSF_LOG2, True, card)}
+    zero_counts()
+    _, (noop,) = exp_gsf.noop_run_seq(np.array([1]), EXP_RUNS, True)
+    expect_counts("(i) noop", read_counts(), {})
+    if not (noop >= 0).all():
+        raise AssertionError(f"(i) noop: {noop}")
+
+    # the chunked sequences' pacf against the series built to pass it
+    _, (chunked,) = exp_pf.step_run_seq(np.array([N]), EXP_RUNS, True)
+    zero_counts()
+    rows = exp_pf.breakdown_run_seqs(EXP_BREAKDOWN_N, EXP_RUNS, True)
+    expect_counts("(i) breakdown", read_counts(),
+                  {"compact": EXP_RUNS + 1, "expand": EXP_RUNS + 1})
+    metric["breakdown_ms"] = {k: float(np.median(v)) * 1e3
+                              for k, v in rows.items()}
+    zero_counts()
+    series = exp_pacf.pacf_series(N, EXP_PACF_K, EXP_PACF_REPS, gpu=True)
+    calls = (EXP_PACF_REPS + 1) * EXP_PACF_K
+    expect_counts("(i) pacf series", read_counts(),
+                  {"compact": calls, "expand": calls})
+    metric["pacf"] = {"chunked_step_2^20": max_abs_pacf(chunked, 10),
+                      "series_2^20": series["max_abs_pacf"],
+                      "series_median_rep_ms": series["median_rep_ms"]}
+    log(f"experiments (i), breakdown at n={EXP_BREAKDOWN_N}, median ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metric["breakdown_ms"].items())
+        + f"; max |pacf|: chunked step sequence at 2^20 "
+        f"{metric['pacf']['chunked_step_2^20']:.3f}, pacf series (K = "
+        f"{EXP_PACF_K}, {EXP_PACF_REPS} reps) {series['max_abs_pacf']:.3f} "
+        f"(gate 0.2; printed, not failed on), {series['median_rep_ms']:.3f} "
+        f"ms a rep ({card})")
+
+    zero_counts()
+    _, ((steps, (e_cpu, e_card)),) = exp_power.step_energy(
+        np.array([N]), EXP_POWER_T_RUN, True)
+    expect_counts("(i) energy", read_counts(),
+                  {"compact": steps + 1, "expand": steps + 1})
+    (_, cpu_j, card_j), = exp_power.per_step([N], [(steps, (e_cpu, e_card))])
+    samples = exp_power.step_energy.func.func.last_samples
+    span = float(samples[0, -1] - samples[0, 0])
+    limit = power_limit_w(card)
+    if not (np.isfinite(e_card) and e_card > 0
+            and e_card / span <= 1.05 * limit):
+        raise AssertionError(f"(i) energy: card {e_card} J over {span:.2f} s "
+                             f"against a limit of {limit} W")
+    metric["energy_2^20"] = {"card_j_per_step": card_j,
+                             "cpu_j_per_step": cpu_j if np.isfinite(cpu_j)
+                             else None, "card_mean_w": e_card / span,
+                             "steps": steps}
+    log(f"experiments (i), energy at n={N}: {steps} steps in {span:.2f} s, "
+        f"card {card_j:.4f} J/step (mean {e_card / span:.1f} W of the "
+        f"{limit:.0f} W limit), CPU {cpu_j:.4f} J/step (NaN where the host's "
+        f"counters do not advance) ({card})")
+
+    ts = np.linspace(0, EXP_LOOP_END, int(EXP_LOOP_END * 10))
+    events = int(sim_loop.event_masks(ts, DT_CONTROL, DT_CONTROL)[1].sum())
+    metric["closed_loop"] = {
+        "pf_host_2^20": exp_summary("(i) PF get_sim_summary",
+                                    exp_pf_cl.get_sim_summary, N, events,
+                                    card),
+        "pf_device_2^20": exp_summary("(i) PF get_sim_summary_device",
+                                      exp_pf_cl.get_sim_summary_device, N,
+                                      2 * events, card),
+        "gsf_host_2^14": exp_summary("(i) GSF get_sim_summary",
+                                     exp_gsf_cl.get_sim_summary,
+                                     EXP_GSF_LOOP_N, events, card),
+        "gsf_device_2^14": exp_summary("(i) GSF get_sim_summary_device",
+                                       exp_gsf_cl.get_sim_summary_device,
+                                       EXP_GSF_LOOP_N, 2 * events, card)}
+
+    zero_counts()
+    times = exp_mpc.mpc_run_seq(n_runs=EXP_MPC_RUNS)
+    solve_ms, iters = exp_mpc.device_solve_ms()
+    itse = exp_pvcp.get_simulation_performance(30.0, 0)
+    expect_counts("(i) MPC", read_counts(), {})
+    if not (times.shape == (EXP_MPC_RUNS,) and (times > 0).all()
+            and np.isfinite(solve_ms) and np.isfinite(itse)):
+        raise AssertionError(f"(i) MPC: {times}, {solve_ms}, {itse}")
+    metric["mpc"] = {"k_step_median_ms": float(np.median(times[1:])) * 1e3,
+                     "device_solve_ms": solve_ms,
+                     "cold_start_iterations": iters,
+                     "itse_dt_control_30": float(itse)}
+    log(f"experiments (i), MPC at dt_control={DT_CONTROL}: K.step median "
+        f"{metric['mpc']['k_step_median_ms']:.3f} ms over {EXP_MPC_RUNS - 1}"
+        f" warm solves, device solve {solve_ms:.3f} ms (slope of chained "
+        f"solves), cold start {iters:.0f} iterations; ITSE at dt_control=30"
+        f" {itse:.6g} ({card})")
+    return metric
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2586,6 +2806,7 @@ def main() -> int:
     scenario_metric, scen = phase_scenario(dev, card)
     instr_metric = phase_instrumentation(dev, args.seed, card)
     multi_metric = phase_multi_device(dev, args.seed, card, scen)
+    exp_metric = phase_experiments(dev, card)
     times.update(merge_times)
     bounds.update(merge_bounds)
     # no single PyTorch call computes any of these functions (each is a
@@ -2609,6 +2830,7 @@ def main() -> int:
     print(json.dumps(scenario_metric))
     print(json.dumps(instr_metric))
     print(json.dumps(multi_metric))
+    print(json.dumps(exp_metric))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

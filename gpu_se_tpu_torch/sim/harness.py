@@ -32,6 +32,10 @@ from gpu_se_tpu_torch.filters import (
 from gpu_se_tpu_torch.models import Bioreactor, create_linear_model
 from gpu_se_tpu_torch.models.bioreactor import static_outputs
 
+# The MPC's output and input weights (Cg, Cfa; Fg_in, Fm_in).
+MPC_Q = np.diag([0.1, 1.0])
+MPC_R = np.diag([1.0, 1.0])
+
 
 def get_parts(dt_control=1, N_particles=2 * 15, gpu=True, pf=True, seed=0,
               device="cuda"):
@@ -78,8 +82,8 @@ def _plant_and_controller(dt_control, device):
     K = MPC(
         P=int(300 // dt_control),
         M=max(int(200 // dt_control), 1),
-        Q=np.diag([0.1, 1]),
-        R=np.diag([1, 1]),
+        Q=MPC_Q,
+        R=MPC_R,
         lin_model=lin_model,
         ysp=lin_model.yn2d(np.array([280, 850]), subselect=False),
         u_bounds=[

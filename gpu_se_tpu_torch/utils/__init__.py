@@ -1,9 +1,6 @@
 """Instrumentation: run sequences, the pacf gate, energy per run, the
-result jar and state checkpoints.
-
-``cache`` (``PickleJar``, ``global_cache_settings``) needs joblib and is
-imported on first use, so the others import where joblib is missing.
-"""
+result jar and state checkpoints."""
+from gpu_se_tpu_torch.utils.cache import PickleJar, global_cache_settings
 from gpu_se_tpu_torch.utils.checkpoint import StateCheckpointer
 from gpu_se_tpu_torch.utils.power import (
     PowerMeasurement,
@@ -23,10 +20,3 @@ __all__ = [
     "pacf",
     "max_abs_pacf",
 ]
-
-
-def __getattr__(name: str):
-    if name in ("PickleJar", "global_cache_settings"):
-        from gpu_se_tpu_torch.utils import cache
-        return getattr(cache, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

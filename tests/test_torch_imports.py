@@ -34,12 +34,15 @@ def test_imports_with_jax_blocked():
                  "parallel.mesh", "parallel.distributed", "parallel._comm",
                  "parallel.sharded", "parallel.launch", "config",
                  "utils", "utils.cache", "utils.checkpoint", "utils.power",
-                 "utils.run_sequences", "utils.stats"):
+                 "utils.run_sequences", "utils.stats", "results",
+                 "results._common", "results._filter_bench",
+                 "results.pacf_series", "results.campaign"):
         assert f"gpu_se_tpu_torch.{name}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['gpu_se_tpu'] = None\n"
+        "sys.modules['results'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -71,7 +74,9 @@ def test_rig_imports_numpy_only():
 
 
 def test_sources_name_no_jax_or_reference_package():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|gpu_se_tpu)\b",
+    """No source imports JAX, the reference package or the reference's
+    top-level ``results`` (whose modules import both)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|gpu_se_tpu|results)\b",
                          re.MULTILINE)
     for path in list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         text = path.read_text()

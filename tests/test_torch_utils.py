@@ -153,6 +153,102 @@ def test_utils_import_without_joblib():
     assert proc.stdout.strip() == "ok"
 
 
+def test_picklejar_without_joblib(tmp_path):
+    """The jar's cases above, in a process where joblib is missing (the
+    card's machine has none)."""
+    import subprocess
+    import sys
+    code = f"""
+import os, sys
+sys.modules['joblib'] = None
+from gpu_se_tpu_torch import utils
+from gpu_se_tpu_torch.utils import cache
+calls = []
+@cache.PickleJar.pickle("test_cache", root={str(tmp_path)!r})
+def slow_square(x):
+    calls.append(x)
+    return x * x
+assert slow_square(7) == 49 and slow_square(7) == 49 and calls == [7]
+slow_square.clear_single(7)
+assert slow_square(7) == 49 and calls == [7, 7]
+assert os.path.isdir(os.path.join({str(tmp_path)!r}, "test_cache", "slow_square"))
+utils.global_cache_settings["force_rerun"] = True
+slow_square(7)
+assert calls == [7, 7, 7]
+os.environ[cache.ROOT_ENV] = {str(tmp_path / "port")!r}
+assert cache.PickleJar(lambda x: x, "pf/raw").store_backend.location \\
+    .startswith({str(tmp_path / "port")!r})
+assert "joblib" not in [k for k, v in sys.modules.items() if v is not None]
+print("ok")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_picklejar_keys_by_bound_arguments(tmp_path):
+    """A call by position and one by keyword, defaults filled in, share a
+    memo; arrays key by dtype, shape and bytes."""
+    calls = []
+
+    @cache.PickleJar.pickle("keys", root=str(tmp_path))
+    def f(x, scale=2):
+        calls.append(x)
+        return np.asarray(x) * scale
+
+    f(3)
+    f(x=3)
+    f(3, scale=2)
+    assert len(calls) == 1
+    f(np.arange(3, dtype=np.int64))
+    f(np.arange(3, dtype=np.int32))
+    f(np.arange(3, dtype=np.int64).reshape(3, 1))
+    f(np.arange(3, dtype=np.int64))
+    assert len(calls) == 4
+    assert cache.argument_hash(f.func, (3,), {}) == cache.argument_hash(
+        f.func, (), {"x": 3, "scale": 2})
+
+
+@pytest.mark.parametrize("same_code", [True, False])
+def test_picklejar_source_change(tmp_path, same_code):
+    """``force_same_code`` keeps a memo whose function's source changed;
+    without it the memo is dropped."""
+    calls = []
+    settings = {"force_rerun": False, "force_same_code": same_code}
+
+    def f(x):
+        calls.append(x)
+        return x + 1
+
+    jar_fn = cache.PickleJar(f, "code", cache_settings=settings,
+                             root=str(tmp_path))
+    jar_fn(1)
+    code_file = os.path.join(jar_fn.store_backend.func_dir, cache.CODE_FILE)
+    with open(code_file) as fh:
+        assert fh.read() == cache.function_source(f)
+    with open(code_file, "w") as fh:
+        fh.write("def f(x):\n    return x + 2\n")
+    assert jar_fn(1) == 2
+    assert calls == ([1] if same_code else [1, 1])
+    with open(code_file) as fh:
+        assert fh.read() == cache.function_source(f)
+
+
+def test_picklejar_writes_atomically(tmp_path):
+    import pickle
+
+    jar_fn = cache.PickleJar(lambda x: {"x": np.full(4, x)}, "atomic",
+                             root=str(tmp_path))
+    jar_fn(5)
+    files = os.listdir(jar_fn.store_backend.func_dir)
+    assert not [f for f in files if f.startswith(".tmp")]
+    (memo,) = [f for f in files if f.endswith(".pkl")]
+    with open(os.path.join(jar_fn.store_backend.func_dir, memo), "rb") as fh:
+        np.testing.assert_array_equal(pickle.load(fh)["x"], np.full(4, 5))
+
+
 # ----------------------------------------------------------------------
 # energy per run
 # ----------------------------------------------------------------------
