@@ -23,7 +23,15 @@ Phases, each of which raises on failure:
    ``coarse_gather`` on its edge cases of ``rig`` (the same families; n
    from 128 to 2^24, the one survivor's last chunk holding every key
    from the survivor on; 1 to 8 rows). A watchdog ends the run if these
-   cases hang;
+   cases hang. ``counter_draw`` (Philox, the sharded steps' per-rank
+   noise) against its plain version at the main paths' draws (2^20
+   samples a rank of the flat step, rows, from 0 and 2^20; 2^21
+   lanes-last; 2^18 x 11 a rank of the GSUKF step, lanes-last, from 0
+   and 2^18 x 11), an odd start and count and a range across the
+   counter's 32-bit carry: the words and uniforms bit-equal, the normals
+   within ``NORMAL_ATOL``;
+   slices of 2^21 samples concatenated bit-equal to the whole draw; timed
+   at a rank's 2^20-sample draw beside ``torch.randn`` plus ``torch.rand``;
 4. the CUDA tiled and flat steps against the committed reference step
    (``tests/data/torch_parity_step.npz``);
 5. the tiled main path: the tiled particle-filter step of ``bench.py``'s
@@ -120,7 +128,8 @@ Phases, each of which raises on failure:
     ragged exchange, ``a2a_xla``, ``a2a_ring``, ``a2a_ring_v4``: compact
     + expand over the ring), each equal to the plain gather at the same
     segmented ``ends`` bit for bit, its device-to-host copies a step
-    counted by ``torch.profiler``, then 10 chained steps timed; the
+    counted by ``torch.profiler``, then 10 chained steps timed, each
+    drawing its noise by one ``counter_draw`` of samples [0, 2^20); the
     sharded tiled step at 2^20 with both exchanges (bit-equal to each
     other, its resample to the ring route's); the sharded GSUKF step at
     2^18 (``xla``, ``kernel`` on the 30-column bank, ``a2a``), routes
@@ -132,10 +141,14 @@ Phases, each of which raises on failure:
     particles each of 2^21, the ``kernel``, ``a2a`` and tiled ``ragged``
     resamples equal to W = 1's on the same global input bit for bit;
     then the entry points from each rank's slice of one global state:
-    ``make_shard_map_step`` (``kernel``, ``a2a``), its first step equal
-    to W = 1's bit for bit, and ``make_shard_map_tiled_step``
-    (``ragged``), finite, each launching its kernels on both ranks and
-    timed over 5 steps;
+    ``make_shard_map_step`` (``kernel``, ``a2a``) and
+    ``make_shard_map_gsukf_step`` (``kernel``, 2^18 Gaussians a rank),
+    their first step equal to W = 1's bit for bit, each rank's
+    ``counter_draw`` counted at its own ``n_local`` samples (``n_local (2
+    nx + 1)`` for the GSUKF) and the next step's peak memory above its
+    state printed, and ``make_shard_map_tiled_step`` (``ragged``), finite,
+    each launching its kernels on both ranks and timed over 5 chained
+    steps by ``results/sharded_steps.step_rows``;
 15. (i) the experiments layer (``gpu_se_tpu_torch/results``), through the
     entry points the campaign calls, with the jar under a temporary
     directory: the PF run sequences (predict, update, resample, step) on
@@ -145,8 +158,10 @@ Phases, each of which raises on failure:
     timer control, 10 runs each, every time finite and positive, and
     ``compact`` and ``expand`` launched once a call of every op that
     resamples at n >= 2^12 and never otherwise; ``breakdown_pf`` at 2^18;
-    ``pacf_series`` (8 steps, 20 reps) beside the chunked step sequence's
-    max |pacf|; ``pf_power.step_energy`` over 2 s at 2^20 (the card's J
+    ``pacf_series`` (8 steps, 20 reps, one CUDA graph replay a rep:
+    ``compact`` and ``expand`` 8 times at the warm-up and 8 at the
+    capture, 21 replays counted) with its host-ms and device-ms series,
+    beside the chunked step sequence's max |pacf|; ``pf_power.step_energy`` over 2 s at 2^20 (the card's J
     finite, positive and under 105% of the power limit over the window);
     ``get_sim_summary`` and ``get_sim_summary_device`` of the PF at 2^20
     and of the GSF at 2^14 to t = 2 (``compact`` and ``expand`` once a
@@ -160,7 +175,10 @@ read once, each output written once, counting only the survivors this
 run's weights leave where the kernel reads no other entry) over 3.35
 TB/s, or its compare and add operations over 67 T/s (the H100's float32
 rate outside the tensor cores; the table has no int32 row), whichever is
-larger. Kernels are timed by their device time under ``torch.profiler``;
+larger. ``library_ms`` is ``counter_draw``'s ``torch.randn`` plus
+``torch.rand`` of the same shape, and null for the resample kernels, whose
+functions no single PyTorch call computes. Kernels are timed by their
+device time under ``torch.profiler``;
 a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
 
@@ -204,6 +222,7 @@ from gpu_se_tpu_torch.filters import particle_tiled as pft  # noqa: E402
 from gpu_se_tpu_torch.filters import resampling as rs  # noqa: E402
 from gpu_se_tpu_torch.models import bioreactor as bio  # noqa: E402
 from gpu_se_tpu_torch.ops import _build  # noqa: E402
+from gpu_se_tpu_torch.ops import counter_draw as cdraw  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_coarse as rc  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas2 as rp2  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas3 as rp3  # noqa: E402
@@ -229,6 +248,8 @@ from gpu_se_tpu_torch.utils import PowerMeasurement, RunSequences  # noqa: E402
 from gpu_se_tpu_torch.utils import StateCheckpointer, max_abs_pacf  # noqa: E402
 from gpu_se_tpu_torch.utils import cache as jar_cache  # noqa: E402
 from gpu_se_tpu_torch.results import pacf_series as exp_pacf  # noqa: E402
+from gpu_se_tpu_torch.results import sharded_steps  # noqa: E402
+from gpu_se_tpu_torch.results.sharded_steps import counted_draws  # noqa: E402
 from gpu_se_tpu_torch.results.bioreactor_closedloop import (  # noqa: E402
     mpc_run_seq as exp_mpc,
     performance_vs_control_period as exp_pvcp,
@@ -334,7 +355,23 @@ KERNELS = {
     "expand": ("gpu_se_tpu_torch/csrc/resample_expand.cu",
                "gpu_se_tpu/ops/resample_pallas4.py:76, "
                "gpu_se_tpu/ops/resample_pallas2.py:178", rp4.expand),
+    # port-only: no Pallas kernel; the reference draws with partitionable
+    # threefry outside its shard_map
+    "counter_draw": ("gpu_se_tpu_torch/csrc/counter_draw.cu",
+                     "none (port-only): the partitionable threefry draw of "
+                     "gpu_se_tpu/parallel/sharded.py:1015 and :1133",
+                     cdraw.counter_draw),
 }
+# counter_draw against its plain version: (start, count, nx, lanes_last)
+# at the main paths' draws (the flat step's 2^20 samples a rank, rows,
+# at W = 1 and as W = 2's rank 1; 2^21 lanes-last; the GSUKF step's
+# 2^18 x 11 samples a rank, lanes-last, as W = 2's rank 0 and rank 1),
+# an odd start and count, and a range across the counter's 32-bit carry
+COUNTER_CASES = ((0, 2**20, 5, False), (2**20, 2**20, 5, False),
+                 (0, 2**21, 5, True), (0, N_BANK * 11, 5, True),
+                 (N_BANK * 11, N_BANK * 11, 5, True),
+                 (123457, 999983, 5, False), (2**32 - 1001, 4097, 3, True))
+COUNTER_KEY = (0x1234ABCD, 0x0F0E0D0C)
 # the kernel each flat-filter route must launch once per step
 ROUTE_KERNELS = {"auto": ("compact", "expand"),
                  "ends": ("ends_merge_round",), "v3": ("cumsum_merge",),
@@ -755,6 +792,63 @@ def phase_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
             log(f"kernels == plain: n={n} {family} "
                 f"(survivors {int(got[3].item())})")
     return errs
+
+
+def phase_counter_draw(dev, card: str):
+    """``counter_draw`` against its plain version on ``COUNTER_CASES``:
+    the Philox words and the uniforms bit-equal, the normals within
+    ``counter_draw.NORMAL_ATOL``; slices that concatenate bit-equal to
+    the whole draw, in both layouts; then timed at the sharded flat
+    step's draw (a rank's 2^20 samples, nx = 5, rows) beside its bound
+    and ``torch.randn`` plus ``torch.rand`` of the same shape. Returns
+    ``(max |error|, (ms, plain ms), bound, library ms)``; its launches
+    here are not counted."""
+    key = torch.tensor(COUNTER_KEY, dtype=torch.int64, device=dev)
+    err = 0.0
+    for start, count, nx, lanes in COUNTER_CASES:
+        eps, u, w = cdraw.counter_draw(key, start, count, nx, lanes,
+                                       words=True)
+        p_eps, p_u, p_w = cdraw.counter_draw_plain(key, start, count, nx,
+                                                   lanes, words=True)
+        if not torch.equal(w.to(torch.int64) & cdraw.MASK32, p_w):
+            raise AssertionError(f"counter_draw {start}+{count}: words differ")
+        if not torch.equal(u, p_u):
+            raise AssertionError(f"counter_draw {start}+{count}: uniforms "
+                                 f"differ")
+        e = float((eps - p_eps).abs().max())
+        if not e <= cdraw.NORMAL_ATOL:
+            raise AssertionError(f"counter_draw {start}+{count}: normals "
+                                 f"{e} apart (tolerance "
+                                 f"{cdraw.NORMAL_ATOL})")
+        err = max(err, e)
+        log(f"counter_draw == plain: samples [{start}, {start + count}), "
+            f"nx={nx}, {'lanes-last' if lanes else 'rows'}: words and "
+            f"uniforms bit-equal, normals within {e:.3g}")
+    cuts = (0, 1, 4097, N_W2 // 2 + 7, N_W2 - 3, N_W2)
+    for lanes in (False, True):
+        whole = cdraw.counter_draw(key, 0, N_W2, 5, lanes)
+        parts = [cdraw.counter_draw(key, a, b - a, 5, lanes)
+                 for a, b in zip(cuts[:-1], cuts[1:])]
+        joined = (torch.cat([p[0] for p in parts], dim=int(lanes)),
+                  torch.cat([p[1] for p in parts]))
+        assert_equal(f"counter_draw slices {cuts}", joined, whole)
+    log(f"counter_draw: slices {cuts} of {N_W2} samples == the whole draw "
+        f"bit for bit, rows and lanes-last")
+    kern = lambda: cdraw.counter_draw(key, 0, N, 5)  # noqa: E731
+    plain = lambda: cdraw.counter_draw_plain(key, 0, N, 5)  # noqa: E731
+    bound = least_time(cdraw.draw_bytes(N, 5), cdraw.draw_ops(N, 5))
+    times = time_pair("counter_draw", kern, plain, card, bound)
+    library_ms = device_ms(lambda: (torch.randn((N, 5), device=dev),
+                                    torch.rand((N,), device=dev)))
+    s_bank = N_BANK * 11
+    bank_ms = device_ms(lambda: cdraw.counter_draw(key, 0, s_bank, 5, True))
+    bank_bound = least_time(cdraw.draw_bytes(s_bank, 5),
+                            cdraw.draw_ops(s_bank, 5))
+    log(f"time counter_draw: torch.randn + torch.rand of the same shape "
+        f"{library_ms:.4f} ms; at the GSUKF's {s_bank} samples lanes-last "
+        f"{bank_ms:.4f} ms, bound {bank_bound[0]:.4f} ms ({card})")
+    zero_counts()
+    return err, times, bound, library_ms
 
 
 def phase_merge_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
@@ -2256,6 +2350,15 @@ def chained_ms(step, state, steps: int = SHARD_STEPS):
     return start.elapsed_time(end) / steps, state
 
 
+def check_draws(path: str, draws, rank: int, n_local: int, s: int) -> None:
+    """Fail unless every draw of ``draws`` was this rank's own samples,
+    ``[rank n_local s, (rank + 1) n_local s)``."""
+    want = (rank * n_local * s, n_local * s)
+    if not draws or any(d[:2] != want for d in draws):
+        raise AssertionError(f"{path}: rank {rank} drew {draws}, not "
+                             f"{want}")
+
+
 def host_reads(fn) -> tuple[int, int]:
     """``(device-to-host copies, device ops)`` of one call of ``fn`` under
     ``torch.profiler``."""
@@ -2291,10 +2394,12 @@ def shard_step_args(dev):
 
 W2_ROUTES = ("kernel", "a2a", "tiled ragged")
 # (h)'s entry points at W = 2 and the kernels each launches a step
-W2_STEPS = {"flat kernel": ("ends_merge_round",),
-            "flat a2a": ("compact", "expand"),
+W2_STEPS = {"flat kernel": ("ends_merge_round", "counter_draw"),
+            "flat a2a": ("compact", "expand", "counter_draw"),
+            "gsukf kernel": ("ends_merge_round", "counter_draw"),
             "tiled ragged": ("compact", "expand")}
-W2_TIMED = 5              # steps timed a W = 2 entry point
+N_BANK_W2 = 2 * N_BANK    # (h)'s global Gaussians at W = 2
+W2_TIMED = 5              # chained steps timed a W = 2 entry point
 
 
 def w2_resample(mesh, name, parts, w, r):
@@ -2309,8 +2414,9 @@ def w2_resample(mesh, name, parts, w, r):
 
 def w2_step(mesh, name, seed: int):
     """``(state, step)`` of one of ``W2_STEPS`` on this rank: its slice of
-    the bench rig's global state of N_W2 particles, drawn from the seed
-    on the mesh's device, and the entry point's step on it."""
+    the bench rig's global state of N_W2 particles (N_BANK_W2 Gaussians),
+    drawn from the seed on the mesh's device, and the entry point's step
+    on it."""
     dev = mesh.device
     x0, state_pdf, meas_pdf = bench_rig(dev)
     f, g, u, z, dt = shard_step_args(dev)
@@ -2319,10 +2425,24 @@ def w2_step(mesh, name, seed: int):
     if kind == "flat":
         state = par.shard_pf_state(pf.init(gen, N_W2, x0), mesh)
         fn = par.make_shard_map_step(mesh, f, g, resample_impl=route)
+    elif kind == "gsukf":
+        state = par.shard_gsukf_state(
+            gsf.init(gen, N_BANK_W2, x0, state_pdf), mesh)
+        fn = par.make_shard_map_gsukf_step(mesh, f, g, resample_impl=route)
     else:
         state = par.shard_tiled_pf_state(pft.init(gen, N_W2, x0), mesh)
         fn = par.make_shard_map_tiled_step(mesh, f, g, exchange=route)
     return state, lambda s: fn(s, u, z, dt, state_pdf, meas_pdf)
+
+
+def w2_fields(name: str, state):
+    """The arrays of a W = 2 entry point's state that W = 1's must
+    equal."""
+    if name.startswith("tiled"):
+        return (state.x,)
+    if name.startswith("gsukf"):
+        return (state.means, state.covariances, state.weights)
+    return (state.particles, state.weights)
 
 
 def w2_rank(seed: int):
@@ -2346,20 +2466,11 @@ def w2_rank(seed: int):
     for name in W2_STEPS:
         state, step = w2_step(mesh, name, seed)
         zero_counts()
-        state = step(state)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        first = tuple(t.cpu().numpy() for t in (
-            (state.x,) if name.startswith("tiled")
-            else (state.particles, state.weights)))
-        times = []
-        for _ in range(W2_TIMED):
-            dist.barrier()
-            t0 = time.perf_counter()
-            state = step(state)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        steps[name] = (first, counts, float(np.median(times)))
+        with counted_draws() as draws:
+            first, peak, ms = sharded_steps.step_rows(step, state, W2_TIMED,
+                                                      mesh.device)
+        first = tuple(t.cpu().numpy() for t in w2_fields(name, first))
+        steps[name] = (first, read_counts(), ms, draws, peak)
     return mesh.rank, str(mesh.device), rows, steps
 
 
@@ -2411,17 +2522,21 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
         assert_equal(f"sharded flat {name} vs plain", (got,), (plain,))
         reads, ops = host_reads(lambda: step.from_noise(
             start.particles, start.weights, u, z, dt, meas_pdf, noise, r))
-        ms[f"flat {name}"], last = chained_ms(
-            lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
-            pf.PFState(start.particles, start.weights, gen(1)))
+        with counted_draws() as draws:
+            ms[f"flat {name}"], last = chained_ms(
+                lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
+                pf.PFState(start.particles, start.weights, gen(1)))
+        check_draws(f"sharded flat step, {name}", draws, 0, N, 1)
         expect_counts(f"sharded flat step, {name}", read_counts(),
-                      {k: SHARD_STEPS + 3 for k in kernels})
+                      {**{k: SHARD_STEPS + 3 for k in kernels},
+                       "counter_draw": SHARD_STEPS + 1})
         if not torch.isfinite(last.particles).all():
             raise AssertionError(f"sharded flat {name}: non-finite")
         log(f"multi-device (h), W=1 NCCL, flat step {name} at n={N}: "
             f"{ms[f'flat {name}']:.4f} ms/step ({SHARD_STEPS} chained, CUDA "
             f"events); == plain resample bit for bit; one step: {reads} "
-            f"device-to-host copies, {ops} device ops ({card})")
+            f"device-to-host copies, {ops} device ops; each step drew "
+            f"samples [0, {N}) by counter_draw ({card})")
 
     # the tiled step: both exchanges from one state, then the resample
     # of one step against the ring route
@@ -2461,16 +2576,20 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
                                     z, dt, meas_pdf, g_noise, g_r)
         first = first or (m, c)
         assert_equal(f"sharded GSUKF {name} vs xla", (m, c), first)
-        ms[f"gsukf {name}"], last = chained_ms(
-            lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
-            gsf.GSUKFState(g0.means, g0.covariances, g0.weights, gen(5)),
-            steps=3)
+        with counted_draws() as draws:
+            ms[f"gsukf {name}"], last = chained_ms(
+                lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
+                gsf.GSUKFState(g0.means, g0.covariances, g0.weights, gen(5)),
+                steps=3)
+        check_draws(f"sharded GSUKF step, {name}", draws, 0, n_b,
+                    2 * nx + 1)
         expect_counts(f"sharded GSUKF step, {name}", read_counts(),
-                      {k: 5 for k in kernels})
+                      {**{k: 5 for k in kernels}, "counter_draw": 4})
         if not torch.isfinite(last.covariances).all():
             raise AssertionError(f"sharded GSUKF {name}: non-finite")
         log(f"multi-device (h), W=1 NCCL, GSUKF step {name} at N={n_b}: "
-            f"{ms[f'gsukf {name}']:.4f} ms/step ({card})")
+            f"{ms[f'gsukf {name}']:.4f} ms/step; each step drew samples "
+            f"[0, {n_b * (2 * nx + 1)}) by counter_draw ({card})")
 
     # the auto-sharded steps against the single-device steps
     zero_counts()
@@ -2529,11 +2648,10 @@ def multi_w2(dev, seed: int, card: str) -> dict:
             for name in W2_ROUTES}
     want_step = {}
     for name in W2_STEPS:
-        if name.startswith("flat"):
+        if not name.startswith("tiled"):
             state, step = w2_step(one, name, seed)
-            out = step(state)
-            want_step[name] = (out.particles.cpu().numpy(),
-                               out.weights.cpu().numpy())
+            want_step[name] = tuple(t.cpu().numpy()
+                                    for t in w2_fields(name, step(state)))
     t0 = time.perf_counter()
     ranks = run_group(w2_rank, 2, seed, timeout_s=W2_TIMEOUT_S)
     wall = time.perf_counter() - t0
@@ -2559,32 +2677,41 @@ def multi_w2(dev, seed: int, card: str) -> dict:
             f"host copies), {name} resample at n={N_W2} (2^20 a rank, "
             f"lognormal weights): == W=1 bit for bit; launches "
             f"{[{k: c[k] for k in kernels} for c in counts]} ({card})")
-    ms = {}
+    ms, peaks = {}, {}
     for name, kernels in W2_STEPS.items():
         firsts = [steps[name][0] for _, _, _, steps in ranks]
         counts = [steps[name][1] for _, _, _, steps in ranks]
         check_counts(name, counts, kernels)
+        n_local, s = ((N_BANK_W2 // 2, 11) if name.startswith("gsukf")
+                      else (N_W2 // 2, 1))
+        for rank, (_, _, _, steps) in enumerate(ranks):
+            if "counter_draw" in kernels:
+                check_draws(f"W=2 {name} step", steps[name][3], rank,
+                            n_local, s)
+        peaks[name] = [steps[name][4] for _, _, _, steps in ranks]
         if name in want_step:
-            for k, field in enumerate(("particles", "weights")):
+            for k, want_k in enumerate(want_step[name]):
                 got = np.concatenate([f[k] for f in firsts])
-                if not same(got, want_step[name][k]):
+                if not same(got, want_k):
                     raise AssertionError(
-                        f"W=2 {name} step: {field} differ from W=1's")
-            verdict = "== W=1 bit for bit"
+                        f"W=2 {name} step: field {k} differs from W=1's")
+            verdict = ("== W=1 bit for bit; each rank drew its own "
+                       f"{n_local * s} samples")
         else:
             if not all(np.isfinite(f[0]).all() for f in firsts):
                 raise AssertionError(f"W=2 {name} step: non-finite")
             verdict = "finite (its noise depends on the width)"
         ms[name] = [steps[name][2] for _, _, _, steps in ranks]
         log(f"multi-device (h), W=2 (two processes on card 0, gloo with "
-            f"host copies), {name} step at n={N_W2} (2^20 a rank): "
-            f"{ms[name][0]:.3f} / {ms[name][1]:.3f} ms/step (rank 0 / 1, "
-            f"median of {W2_TIMED}, host clock); first step {verdict}; "
-            f"launches {[{k: c[k] for k in kernels} for c in counts]} "
-            f"({card})")
+            f"host copies), {name} step at n={2 * n_local} ({n_local} a "
+            f"rank): {ms[name][0]:.3f} / {ms[name][1]:.3f} ms/step (rank 0 "
+            f"/ 1, {W2_TIMED} chained, CUDA events); first step {verdict}; "
+            f"the next step's peak memory above its state {peaks[name][0] / 2**20:.1f} / "
+            f"{peaks[name][1] / 2**20:.1f} MiB; launches "
+            f"{[{k: c[k] for k in kernels} for c in counts]} ({card})")
     log(f"multi-device (h), W=2: devices {[d for _, d, _, _ in ranks]}, "
         f"{wall:.1f} s with the start-up ({card})")
-    return ms
+    return {"ms_per_step": ms, "step_peak_bytes": peaks}
 
 
 # ----------------------------------------------------------------------
@@ -2691,19 +2818,39 @@ def experiments(dev, card: str) -> dict:
                               for k, v in rows.items()}
     zero_counts()
     series = exp_pacf.pacf_series(N, EXP_PACF_K, EXP_PACF_REPS, gpu=True)
-    calls = (EXP_PACF_REPS + 1) * EXP_PACF_K
+    # the kernels launch K times at the warm-up on a side stream and K
+    # times at the capture; each rep, and the warm-up rep, is one replay
     expect_counts("(i) pacf series", read_counts(),
-                  {"compact": calls, "expand": calls})
+                  {"compact": 2 * EXP_PACF_K, "expand": 2 * EXP_PACF_K})
+    if series["replays"] != EXP_PACF_REPS + 1:
+        raise AssertionError(f"(i) pacf series: {series['replays']} "
+                             f"replays, not {EXP_PACF_REPS + 1}")
+    if not (np.isfinite(series["device_series_ms"]).all()
+            and min(series["device_series_ms"]) > 0):
+        raise AssertionError(f"(i) pacf series: device ms "
+                             f"{series['device_series_ms']}")
     metric["pacf"] = {"chunked_step_2^20": max_abs_pacf(chunked, 10),
                       "series_2^20": series["max_abs_pacf"],
-                      "series_median_rep_ms": series["median_rep_ms"]}
+                      "series_median_rep_ms": series["median_rep_ms"],
+                      "device_series_2^20": series["device_max_abs_pacf"],
+                      "device_median_rep_ms":
+                          series["device_median_rep_ms"],
+                      "host_series_ms": series["series_ms"],
+                      "device_series_ms": series["device_series_ms"]}
     log(f"experiments (i), breakdown at n={EXP_BREAKDOWN_N}, median ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in metric["breakdown_ms"].items())
         + f"; max |pacf|: chunked step sequence at 2^20 "
         f"{metric['pacf']['chunked_step_2^20']:.3f}, pacf series (K = "
-        f"{EXP_PACF_K}, {EXP_PACF_REPS} reps) {series['max_abs_pacf']:.3f} "
-        f"(gate 0.2; printed, not failed on), {series['median_rep_ms']:.3f} "
-        f"ms a rep ({card})")
+        f"{EXP_PACF_K}, {EXP_PACF_REPS} reps, one CUDA graph replay a rep) "
+        f"host ms "
+        f"{series['max_abs_pacf']:.3f}, device ms "
+        f"{series['device_max_abs_pacf']:.3f} (gate 0.2; printed, not "
+        f"failed on), median {series['median_rep_ms']:.3f} ms host, "
+        f"{series['device_median_rep_ms']:.3f} ms device a rep ({card})")
+    log("experiments (i), pacf series host ms: "
+        + " ".join(f"{t:.3f}" for t in series["series_ms"]))
+    log("experiments (i), pacf series device ms: "
+        + " ".join(f"{t:.3f}" for t in series["device_series_ms"]))
 
     zero_counts()
     _, ((steps, (e_cpu, e_card)),) = exp_power.step_energy(
@@ -2770,6 +2917,8 @@ def main() -> int:
     card, dev = phase_card()
     phase_build()
     errs = phase_kernels_vs_plain(dev, args.seed)
+    (errs["counter_draw"], draw_times, draw_bound,
+     draw_library_ms) = phase_counter_draw(dev, card)
     with watchdog(WATCHDOG_S, "the edge cases and repeats of compact and "
                               "expand"):
         phase_edge_cases(dev, args.seed)
@@ -2807,11 +2956,12 @@ def main() -> int:
     instr_metric = phase_instrumentation(dev, args.seed, card)
     multi_metric = phase_multi_device(dev, args.seed, card, scen)
     exp_metric = phase_experiments(dev, card)
-    times.update(merge_times)
-    bounds.update(merge_bounds)
-    # no single PyTorch call computes any of these functions (each is a
-    # sorted search, a compaction or a merge, and a gather): library_ms
-    # stays null
+    times.update(merge_times, counter_draw=draw_times)
+    bounds.update(merge_bounds, counter_draw=draw_bound)
+    # no single PyTorch call computes any of the resample kernels'
+    # functions (each is a sorted search, a compaction or a merge, and a
+    # gather): their library_ms stays null
+    library = {"counter_draw": draw_library_ms}
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": TALLY[name],
@@ -2819,7 +2969,7 @@ def main() -> int:
                            merge_errs.get(name, 0.0)),
         "ms": times[name][0], "plain_ms": times[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": None,
+        "library_ms": library.get(name),
     } for name, (source, replaces, _) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,6 +13,9 @@ CUDA generator, the Mersenne twister on a CPU one. Neither reproduces
 the reference's threefry stream, so element-level tests inject the
 reference's normals and components through :meth:`GaussianSum.draw_from`
 and :meth:`GaussianSum.draw_t_from`, and the port's own draws are checked at the distribution level.
+:meth:`GaussianSum.draw_inputs_at` and :meth:`GaussianSum.draw_inputs_at_t`
+take their normals and uniforms from the counter-based stream of
+``ops/counter_draw`` instead, any slice of it, for the sharded steps.
 
 The ``chol @ eps`` products are float32 matrix products: callers on a
 CUDA device keep ``torch.backends.cuda.matmul.allow_tf32`` off, or the
@@ -25,6 +28,8 @@ from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
+
+from gpu_se_tpu_torch.ops import counter_draw
 
 
 @dataclass(frozen=True)
@@ -148,6 +153,36 @@ class GaussianSum:
         eps = torch.randn((size, self.n_dim), dtype=self.means.dtype,
                           generator=generator, device=self.means.device)
         return eps, comp
+
+    def _component_of(self, u: torch.Tensor) -> torch.Tensor:
+        """The component of each uniform ``u``, int64: ``u >= w0 / (w0 +
+        w1)`` for two components (as :meth:`draw_t_from` picks), the
+        count of float64 cumulative weights ``<= u`` otherwise."""
+        if self.n_components == 2:
+            p0 = self.weights[0] / (self.weights[0] + self.weights[1])
+            return (u >= p0).to(torch.int64)
+        w = self.weights.to(torch.float64)
+        cum = torch.cumsum(w, 0) / w.sum()
+        comp = torch.searchsorted(cum, u.to(torch.float64), right=True)
+        return comp.clamp_max_(self.n_components - 1)
+
+    def draw_inputs_at(self, key: torch.Tensor, start: int, count: int):
+        """:meth:`draw_inputs` of the samples ``[start, start + count)`` of
+        the counter-based stream keyed by ``key``
+        (``ops/counter_draw``): ``(eps (count, Nx), comp (count,))`` for
+        :meth:`draw_from`. Sample ``j`` depends only on ``key`` and ``j``,
+        so slices concatenate to the whole draw."""
+        eps, u = counter_draw.counter_draw(key, start, count, self.n_dim)
+        return eps.to(self.means.dtype), self._component_of(u)
+
+    def draw_inputs_at_t(self, key: torch.Tensor, start: int, count: int):
+        """The lanes-last twin of :meth:`draw_inputs_at`: ``(eps (Nx,
+        count), pick (count,))`` for :meth:`draw_t_from`, ``pick`` the
+        uniforms for two components, the component indices otherwise."""
+        eps, u = counter_draw.counter_draw(key, start, count, self.n_dim,
+                                           lanes_last=True)
+        pick = u if self.n_components == 2 else self._component_of(u)
+        return eps.to(self.means.dtype), pick
 
     def draw_from(self, eps: torch.Tensor, comp: torch.Tensor) -> torch.Tensor:
         """The deterministic core of :meth:`draw`: sample ``k`` is

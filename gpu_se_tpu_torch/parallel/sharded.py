@@ -15,10 +15,8 @@ Two paths, as in the reference:
   torch counterpart here);
 * :func:`make_shard_map_step`, :func:`make_shard_map_gsukf_step` and
   :func:`make_shard_map_tiled_step`: per-rank predict and update, then a
-  distributed systematic resample with ``O(n_local)`` memory a rank. The
-  flat and GSUKF steps still draw the noise of the whole population on
-  every rank (below), ``O(n_global * nx)`` memory and work a rank; only
-  the tiled step draws ``O(n_local)``.
+  distributed systematic resample with ``O(n_local)`` memory a rank,
+  each rank drawing only its own slice of the noise (below).
 
 The resample starts from :func:`_segmented_ends`: the weight cumsum in
 fixed 128-slot segments, whose ``(n_global / 128,)`` totals are the only
@@ -54,16 +52,24 @@ above any global slot index) pads the exchanged survivor ends and firsts,
 and ``compact``'s ``INT32_MAX`` pads its own output; ``n_global`` must
 stay below ``_IBIG``.
 
-Random numbers. The flat and GSUKF steps draw the noise of the whole
-population and ``r`` from the state's generator, whose state is the same
-on every rank, and keep their slice: given the same generator state the
-step equals the port's single-device step, the reference's contract.
-That draw is the part of these steps whose cost a rank grows with the
-width: the reference draws under a sharded jit, so each device makes only
-its slice; a per-rank draw here (a Philox offset a rank) is still to
-come. Their ``from_noise`` attribute takes the noise and ``r`` instead, for the
-parity tests. The tiled step draws each rank's noise from a stream of its
-own (:func:`shard_tiled_pf_state` seeds it from the seed and the rank, as
+Random numbers. The flat and GSUKF steps draw a key (two int64 words)
+and then ``r`` from the state's generator, whose state is the same on
+every rank, so every rank takes the same key and ``r`` with no host
+read, and every generator advances alike. The noise is one
+counter-based stream under that key (``ops/counter_draw``, Philox
+through the ``counter_draw`` kernel, as the reference draws its noise
+with partitionable threefry outside the ``shard_map``): its sample ``j``
+depends only on the key and on ``j``, so each rank draws only its own
+samples, ``O(n_local)`` memory and work a rank, and the step is
+bit-equal across widths. Sample ``j`` is particle ``j`` for the flat
+step, and ``p (2 nx + 1) + s`` (Gaussian ``p``, sigma point ``s``) for
+the GSUKF, so that a rank's Gaussians are one contiguous range. The
+single-device steps keep their torch streams, so the sharded step is
+not the single-device step on the same generator: it is ``from_noise``
+fed the global counter draw's slice. Their ``from_noise`` attribute
+takes the noise and ``r`` instead, for the parity tests. The tiled step
+draws each rank's noise from a stream of its own
+(:func:`shard_tiled_pf_state` seeds it from the seed and the rank, as
 the reference folds the rank into its key), so its noise depends on the
 width, as the reference's does; ``r`` is rank 0's draw.
 """
@@ -80,6 +86,7 @@ from gpu_se_tpu_torch.filters.particle import PFState
 from gpu_se_tpu_torch.filters.particle_tiled import TiledPFState
 from gpu_se_tpu_torch.ops import resample_pallas4 as rp4
 from gpu_se_tpu_torch.ops import resample_pallas_block as rpb
+from gpu_se_tpu_torch.ops.counter_draw import key_from
 from gpu_se_tpu_torch.ops.resample_coarse import blocked_cummax, blocked_cumsum
 from gpu_se_tpu_torch.parallel import _comm
 from gpu_se_tpu_torch.parallel.mesh import Mesh, particle_sharding
@@ -95,9 +102,9 @@ def _uniform(weights: torch.Tensor, n_global: int) -> torch.Tensor:
                       dtype=weights.dtype, device=weights.device)
 
 
-def _local(mesh: Mesh, x: torch.Tensor, n_local: int, dim: int = 0):
-    """This rank's slice of a globally drawn ``x`` along ``dim``."""
-    return x.narrow(dim, mesh.rank * n_local, n_local)
+def _local(mesh: Mesh, x: torch.Tensor, n_local: int):
+    """This rank's rows of a global ``x``."""
+    return x.narrow(0, mesh.rank * n_local, n_local)
 
 
 # ----------------------------------------------------------------------
@@ -502,14 +509,15 @@ def shard_pf_state(state: PFState, mesh: Mesh) -> PFState:
 def make_shard_map_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
     """The sharded flat PF step ``step(state, u, z, dt, state_pdf,
     measurement_pdf) -> PFState`` on this rank's ``(n_local, nx)``
-    particles: the noise of all ``n_global`` particles and then ``r``
-    are drawn from the state's generator (the same on every rank, as
-    ``filters/particle.step`` draws them) and this rank keeps its slice;
-    predict and update are per rank; the resample is ``resample_impl``'s
+    particles: a key and then ``r`` from the state's generator (the same
+    on every rank), this rank's particles' noise from the key's counter
+    stream (:meth:`GaussianSum.draw_inputs_at` at ``rank * n_local``);
+    predict and update per rank; the resample by ``resample_impl``'s
     route (module docstring). Every integer-``ends`` route gives the same
-    rows. ``step.from_noise(particles, weights, u, z, dt,
-    measurement_pdf, noise, r) -> (particles, weights)`` takes this
-    rank's noise slice and ``r`` instead."""
+    rows, and the step is the same at every width. ``step.from_noise(
+    particles, weights, u, z, dt, measurement_pdf, noise, r) ->
+    (particles, weights)`` takes this rank's noise slice and ``r``
+    instead."""
     route = _route(_FLAT_ROUTES, resample_impl)
 
     def from_noise(particles, weights, u, z, dt, measurement_pdf, noise, r):
@@ -520,13 +528,14 @@ def make_shard_map_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
 
     def step(state: PFState, u, z, dt, state_pdf, measurement_pdf):
         n_local = state.n_particles
-        gen = state.generator
-        noise = state_pdf.draw(gen, (n_local * mesh.size,))
-        r = torch.rand((), generator=gen, dtype=torch.float32,
-                       device=state.weights.device)
+        gen, dev = state.generator, state.weights.device
+        key = key_from(gen, dev)
+        r = torch.rand((), generator=gen, dtype=torch.float32, device=dev)
+        noise = state_pdf.draw_from(*state_pdf.draw_inputs_at(
+            key, mesh.rank * n_local, n_local))
         particles, weights = from_noise(
             state.particles, state.weights, u, z, dt, measurement_pdf,
-            _local(mesh, noise, n_local), r)
+            noise, r)
         return PFState(particles, weights, gen)
 
     step.from_noise = from_noise
@@ -589,13 +598,15 @@ def make_auto_sharded_gsukf_step(mesh: Mesh, f, g):
 
 def make_shard_map_gsukf_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
     """The sharded GSUKF step ``step(state, u, z, dt, state_pdf,
-    measurement_pdf) -> GSUKFState`` on this rank's slice of the bank:
-    the sigma-point noise of the whole bank and then ``r`` drawn from the
-    state's generator as ``filters/gs_ukf.step`` draws them, this rank's
-    slice kept; per-rank ``predict_core`` and ``update_core``; the
-    resample of ``(means, covariances)`` by ``"xla"`` (the rings),
-    ``"kernel"`` (A on the 30-column bank) or ``"a2a"``/``"a2a_ring"``
-    (merged in plain torch, as the reference merges them in XLA).
+    measurement_pdf) -> GSUKFState`` on this rank's slice of the bank: a
+    key and then ``r`` from the state's generator (the same on every
+    rank), this rank's sigma-point noise from the key's counter stream
+    (:meth:`GaussianSum.draw_inputs_at_t`, samples ``p (2 nx + 1) + s``
+    of this rank's Gaussians ``p``); per-rank ``predict_core`` and
+    ``update_core``; the resample of ``(means, covariances)`` by
+    ``"xla"`` (the rings), ``"kernel"`` (A on the 30-column bank) or
+    ``"a2a"``/``"a2a_ring"`` (merged in plain torch, as the reference
+    merges them in XLA). The step is the same at every width.
     ``step.from_noise(means, covariances, weights, u, z, dt,
     measurement_pdf, noise, r)`` takes this rank's noise, ``(2 nx + 1,
     nx, n_local)`` lanes-last, and ``r``, and returns ``((means,
@@ -613,15 +624,15 @@ def make_shard_map_gsukf_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
     def step(state: GSUKFState, u, z, dt, state_pdf, measurement_pdf):
         n_local, nx = state.means.shape
         s = 2 * nx + 1
-        gen = state.generator
-        noise = state_pdf.draw_t(gen, n_local * mesh.size * s).reshape(
-            nx, s, n_local * mesh.size)
-        r = torch.rand((), generator=gen, dtype=torch.float32,
-                       device=state.weights.device)
+        gen, dev = state.generator, state.weights.device
+        key = key_from(gen, dev)
+        r = torch.rand((), generator=gen, dtype=torch.float32, device=dev)
+        noise = state_pdf.draw_t_from(*state_pdf.draw_inputs_at_t(
+            key, mesh.rank * n_local * s, n_local * s))
         (means, covs), weights = from_noise(
             state.means, state.covariances, state.weights, u, z, dt,
-            measurement_pdf,
-            _local(mesh, noise, n_local, dim=2).transpose(0, 1), r)
+            measurement_pdf, noise.reshape(nx, n_local, s).permute(2, 0, 1),
+            r)
         return GSUKFState(means, covs, weights, gen)
 
     step.from_noise = from_noise

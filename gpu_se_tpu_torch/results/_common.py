@@ -56,6 +56,21 @@ def card_label() -> str:
                            f"naming one ({ARTIFACT})") from e
 
 
+def device_label(device) -> str:
+    """The name a memo of a run on ``device`` is labelled with: the
+    card's name for a CUDA device, ``"CPU"`` for the CPU. Raises where
+    ``device`` is a CUDA device and torch sees no card, so a missing card
+    memo is never computed here."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "CPU"
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device} needs a CUDA card and torch sees none: the "
+            "card's memo of this run is missing from the jar")
+    return torch.cuda.get_device_name(device)
+
+
 def host_array(t) -> np.ndarray:
     """A tensor (or array) as a float64 numpy array on the host."""
     if isinstance(t, torch.Tensor):

@@ -2,11 +2,15 @@
 host, the MPC's QP on ``device``.
 
 Counterpart of the reference's ``results/bioreactor_closedloop/no_noise.py``.
+:func:`trajectory` memoizes what :func:`simulate` returns, on the host
+and labelled with the device; :func:`plot` reads the card's memo, and
+raises where it is missing and this host has no card.
 """
 import numpy as np
 
 from gpu_se_tpu_torch import sim
-from gpu_se_tpu_torch.results._common import pyplot, save_fig
+from gpu_se_tpu_torch.results._common import device_label, pyplot, save_fig
+from gpu_se_tpu_torch.utils import PickleJar
 
 
 def simulate(end_time=50, dt_control=1, device="cuda"):
@@ -48,18 +52,37 @@ def simulate(end_time=50, dt_control=1, device="cuda"):
     return ts, ys, lin_model, K, us, dt_control, biass, end_time
 
 
+@PickleJar.pickle(path="bioreactor/closedloop")
+def trajectory(end_time=50, dt_control=1, device="cuda"):
+    """:func:`simulate`'s result as host arrays: ``ts``, ``ys``, ``us``,
+    ``biass``, the set point in natural units ``ysp``, the model's
+    ``inputs`` and ``outputs``, the ``itse`` and the ``device`` label."""
+    label = device_label(device)
+    ts, ys, lin_model, K, us, dt_control, biass, end_time = simulate(
+        end_time, dt_control, device)
+    return {"device": label, "ts": ts, "ys": ys, "us": us, "biass": biass,
+            "ysp": lin_model.yd2n(K.ysp),
+            "inputs": list(lin_model.inputs),
+            "outputs": list(lin_model.outputs),
+            "itse": float(sim.performance(ys[:, lin_model.outputs],
+                                          lin_model.yd2n(K.ysp), ts)),
+            "dt_control": dt_control, "end_time": end_time}
+
+
 def plot():
     plt = pyplot()
-    ts, ys, lin_model, K, us, dt_control, biass, end_time = simulate()
+    tr = trajectory()
+    ts, ys, us, biass = tr["ts"], tr["ys"], tr["us"], tr["biass"]
+    dt_control, end_time = tr["dt_control"], tr["end_time"]
     fig, axes = plt.subplots(1, 3, figsize=(18.75, 5), gridspec_kw={"wspace": 0.3})
-    axes[0].plot(ts, us[:, lin_model.inputs[1]], "k")
-    axes[0].plot(ts, us[:, lin_model.inputs[0]], "k--")
+    axes[0].plot(ts, us[:, tr["inputs"][1]], "k")
+    axes[0].plot(ts, us[:, tr["inputs"][0]], "k--")
     axes[0].set_title("Inputs")
     axes[0].legend([r"$F_{m,in}$", r"$F_{G,in}$"])
     axes[1].plot(ts, ys[:, 2], "k")
     axes[1].plot(ts, ys[:, 0], "grey")
     axes[1].plot(ts, ys[:, 3], "k--")
-    ysp_nat = lin_model.yd2n(K.ysp)
+    ysp_nat = tr["ysp"]
     axes[1].axhline(ysp_nat[0], color="red", alpha=0.5)
     axes[1].axhline(ysp_nat[1], color="red", alpha=0.5)
     axes[1].set_title("Outputs (mg/L)")
@@ -67,6 +90,7 @@ def plot():
     axes[2].set_title("bias")
     for ax in axes:
         ax.set_xlabel("t (min)")
+    fig.suptitle(tr["device"])
     return save_fig("no_noise.png")
 
 

@@ -3,12 +3,21 @@
 Counterpart of the reference's
 ``results/bioreactor_closedloop/performance_vs_control_period.py``,
 including its > 1e8 outlier filter: the plant on the host, the MPC's QP
-and the noise draws on ``device``.
+and the noise draws on ``device``. :func:`plot` draws the sweep the
+campaign's ``openloop`` leg writes on the card (``campaign.PERF_VS_CP``,
+12 periods x 3 runs, the reference's own campaign reduction), reading
+the card's memos; a missing one raises where this host has no card.
 """
 import numpy as np
 
 from gpu_se_tpu_torch import sim
-from gpu_se_tpu_torch.results._common import host_array, pyplot, save_fig
+from gpu_se_tpu_torch.results._common import (
+    card_label,
+    device_label,
+    host_array,
+    pyplot,
+    save_fig,
+)
 from gpu_se_tpu_torch.utils import PickleJar
 
 
@@ -16,6 +25,7 @@ from gpu_se_tpu_torch.utils import PickleJar
 def get_simulation_performance(dt_control, monte_carlo, device="cuda"):
     """ITSE of one noisy closed-loop run at the given control period; the
     noise generators are seeded ``7 monte_carlo + 1`` and ``+ 2``."""
+    device_label(device)
     end_time = 50
     ts = np.linspace(0, end_time, end_time * 20)
     dt = ts[1]
@@ -71,8 +81,15 @@ def sweep(n_periods=20, n_mc=5, device="cuda"):
     return dt_controls, table
 
 
-def plot(n_periods=20, n_mc=5):
+def plot(n_periods=None, n_mc=None):
+    """The sweep's median ITSE and 10-90% band against the control
+    period; ``n_periods`` and ``n_mc`` default to the campaign's
+    ``PERF_VS_CP``."""
+    from gpu_se_tpu_torch.results.campaign import PERF_VS_CP
+
     plt = pyplot()
+    n_periods = PERF_VS_CP[0] if n_periods is None else n_periods
+    n_mc = PERF_VS_CP[1] if n_mc is None else n_mc
     dt_controls, table = sweep(n_periods, n_mc)
     masked = np.where(table > 1e8, np.nan, table)
     med = np.nanmedian(masked, axis=1)
@@ -83,6 +100,7 @@ def plot(n_periods=20, n_mc=5):
     plt.fill_between(dt_controls, lo, hi, alpha=0.3, color="grey")
     plt.xlabel("control period (min)")
     plt.ylabel("ITSE")
+    plt.title(f"{card_label()}: {n_periods} periods x {n_mc} runs")
     return save_fig("performance_vs_control_period.png")
 
 

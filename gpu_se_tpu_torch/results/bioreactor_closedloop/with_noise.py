@@ -5,11 +5,20 @@ Counterpart of the reference's
 ``results/bioreactor_closedloop/with_noise.py``, including its fallback
 input ``[0.04, 0.1]`` where the solver raises. The noise is drawn on
 ``device`` from generators seeded ``seed + 31`` and ``seed + 41``.
+:func:`trajectory` memoizes what :func:`simulate` returns, on the host
+and labelled with the device; :func:`plot` reads the card's memo, and
+raises where it is missing and this host has no card.
 """
 import numpy as np
 
 from gpu_se_tpu_torch import sim
-from gpu_se_tpu_torch.results._common import host_array, pyplot, save_fig
+from gpu_se_tpu_torch.results._common import (
+    device_label,
+    host_array,
+    pyplot,
+    save_fig,
+)
+from gpu_se_tpu_torch.utils import PickleJar
 
 
 def simulate(end_time=50, dt_control=1, seed=0, device="cuda"):
@@ -66,9 +75,27 @@ def simulate(end_time=50, dt_control=1, seed=0, device="cuda"):
     return ts, ys, ys_meas, lin_model, K, us, dt_control, biass, end_time
 
 
+@PickleJar.pickle(path="bioreactor/closedloop")
+def noisy_trajectory(end_time=50, dt_control=1, seed=0, device="cuda"):
+    """:func:`simulate`'s result as host arrays: ``ts``, ``ys``,
+    ``ys_meas``, ``us``, ``biass``, the ``itse`` and the ``device``
+    label."""
+    label = device_label(device)
+    ts, ys, ys_meas, lin_model, K, us, dt_control, biass, end_time = \
+        simulate(end_time, dt_control, seed, device)
+    return {"device": label, "ts": ts, "ys": ys, "ys_meas": ys_meas,
+            "us": us, "biass": biass,
+            "itse": float(sim.performance(ys[:, lin_model.outputs],
+                                          lin_model.yd2n(K.ysp), ts)),
+            "dt_control": dt_control, "end_time": end_time}
+
+
 def plot():
     plt = pyplot()
-    ts, ys, ys_meas, lin_model, K, us, dt_control, biass, end_time = simulate()
+    tr = noisy_trajectory()
+    ts, ys, ys_meas, us = tr["ts"], tr["ys"], tr["ys_meas"], tr["us"]
+    dt_control, biass, end_time = tr["dt_control"], tr["biass"], \
+        tr["end_time"]
     fig, axes = plt.subplots(1, 3, figsize=(18.75, 5), gridspec_kw={"wspace": 0.3})
     axes[0].plot(ts, us[:, 1], "k")
     axes[0].plot(ts, us[:, 0], "k--")
@@ -80,6 +107,7 @@ def plot():
     axes[1].set_title("Outputs (mg/L)")
     axes[2].plot(np.arange(dt_control, end_time, dt_control), biass)
     axes[2].set_title("bias")
+    fig.suptitle(tr["device"])
     return save_fig("with_noise.png")
 
 

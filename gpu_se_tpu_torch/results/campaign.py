@@ -33,7 +33,6 @@ import time
 import numpy as np
 import torch
 
-from gpu_se_tpu_torch import sim
 from gpu_se_tpu_torch.results import _common
 
 LEGS = ("pf_run_seq", "gsf_run_seq", "power", "pacf", "mpc", "frontier",
@@ -170,10 +169,14 @@ def leg_power(art):
 
 
 def leg_pacf(art):
+    """The pacf series of record, one CUDA graph replay a rep, beside the
+    eager chain's series (one launch a kernel) taken first in the same
+    call; each with its host-ms and device-ms series."""
     from gpu_se_tpu_torch.results import pacf_series
 
     entry = art.start("pacf")
-    entry.update(pacf_series.pacf_series())
+    eager = pacf_series.pacf_series(graphed=False)
+    entry.update(pacf_series.pacf_series(graphed=True), eager=eager)
 
 
 def leg_mpc(art):
@@ -228,16 +231,16 @@ def leg_openloop(art):
     slope, arg = step_tests.max_slope(dt=0.1)
     entry["max_slope"] = {"slope": float(slope),
                           "at": [float(a) for a in arg]}
-    ts, ys, lin_model, K = no_noise.simulate()[:4]
-    entry["no_noise"] = {"itse": float(sim.performance(
-        ys[:, lin_model.outputs], lin_model.yd2n(K.ysp), ts))}
-    art.write()
-    ts, ys, _, lin_model, K = with_noise.simulate()[:5]
-    entry["with_noise"] = {"itse": float(sim.performance(
-        ys[:, lin_model.outputs], lin_model.yd2n(K.ysp), ts))}
-    art.write()
+    for name, fn in (("no_noise", no_noise.trajectory),
+                     ("with_noise", with_noise.noisy_trajectory)):
+        t0 = time.perf_counter()
+        entry[name] = {"itse": fn()["itse"],
+                       "seconds": time.perf_counter() - t0}
+        art.write()
+    t0 = time.perf_counter()
     dtcs, table = pvcp.sweep(*PERF_VS_CP)
     entry["perf_vs_control_period"] = {
+        "seconds": time.perf_counter() - t0,
         "dt_control": dtcs.tolist(),
         "median_itse": [_finite(v) for v in np.nanmedian(
             np.where(table > 1e8, np.nan, table), axis=1)]}
@@ -257,7 +260,17 @@ def figures(legs) -> None:
     from gpu_se_tpu_torch.results.gsf_openloop import gsf_power, gsf_run_seq
     from gpu_se_tpu_torch.results.pf_closedloop import bioreactor_performance_pf
     from gpu_se_tpu_torch.results.pf_openloop import pf_power, pf_run_seq
-    from gpu_se_tpu_torch.results.bioreactor_closedloop import mpc_run_seq
+    from gpu_se_tpu_torch.results.bioreactor_closedloop import (
+        mpc_run_seq,
+        no_noise,
+        performance_vs_control_period,
+        with_noise,
+    )
+    from gpu_se_tpu_torch.results.bioreactor_openloop import (
+        batch_production_growth,
+        ss2ss,
+        step_tests,
+    )
 
     makers = {
         "pf_run_seq": [lambda: pf_run_seq.plot(RUNS),
@@ -269,6 +282,10 @@ def figures(legs) -> None:
         "frontier": [
             lambda: bioreactor_performance_pf.plot(PF_FRONTIER_LOG2),
             lambda: bioreactor_performance_gsf.plot(GSF_FRONTIER_LOG2)],
+        "openloop": [ss2ss.plot, step_tests.plot,
+                     batch_production_growth.plot, no_noise.plot,
+                     with_noise.plot,
+                     lambda: performance_vs_control_period.plot(*PERF_VS_CP)],
     }
     for leg in legs:
         for make in makers.get(leg, []):

@@ -37,6 +37,7 @@ from gpu_se_tpu_torch.parallel import (
     shard_tiled_pf_state,
 )
 from gpu_se_tpu_torch.parallel import sharded as S
+from gpu_se_tpu_torch.results.sharded_steps import counted_draws
 
 F, G = bio.homeostatic_des, bio.static_outputs
 
@@ -129,8 +130,30 @@ def sharding_suite(d):
             rows(d["g_noise"], 2), g_r)
         out["gsukf_step"][name] = (_np(m), _np(c))
 
-    # the auto-sharded steps from a seeded state
+    # the entry points' own steps from a seeded generator, and the
+    # counter draws each rank made
     x0, state_pdf = _gs(d["x0"]), _gs(d["state_pdf"])
+    out["step"], out["gsukf_own_step"], out["draws"] = {}, {}, {}
+    for name in S._FLAT_ROUTES:
+        state = shard_pf_state(convert.pf_state_from_numpy(
+            d["step_x"], d["step_w"],
+            torch.Generator().manual_seed(d["seed"])), mesh)
+        with counted_draws() as draws:
+            got = make_shard_map_step(mesh, F, G, resample_impl=name)(
+                state, u, z, dt, state_pdf, meas)
+        out["step"][name] = (_np(got.particles), _np(got.weights))
+        out["draws"]["flat " + name] = [draws]
+    for name in S._GSUKF_ROUTES:
+        bank = shard_gsukf_state(convert.gsukf_state_from_numpy(
+            d["g_means"], d["g_covs"], d["g_weights"],
+            torch.Generator().manual_seed(d["seed"])), mesh)
+        with counted_draws() as draws:
+            got = make_shard_map_gsukf_step(mesh, F, G, resample_impl=name)(
+                bank, u, z, dt, state_pdf, meas)
+        out["gsukf_own_step"][name] = (_np(got.means), _np(got.covariances))
+        out["draws"]["gsukf " + name] = [draws]
+
+    # the auto-sharded steps from a seeded state
     state = pf.init(torch.Generator().manual_seed(d["seed"]), d["n_auto"], x0)
     got = make_auto_sharded_step(mesh, F, G)(
         shard_pf_state(state, mesh), u, z, dt, state_pdf, meas)

@@ -26,6 +26,7 @@ from gpu_se_tpu_torch.filters import particle_tiled as pft
 from gpu_se_tpu_torch.filters import resampling as rs
 from gpu_se_tpu_torch.models import bioreactor as bio
 from gpu_se_tpu_torch.ops import _build
+from gpu_se_tpu_torch.ops import counter_draw as cd
 from gpu_se_tpu_torch.ops import resample_coarse as rc
 from gpu_se_tpu_torch.ops import resample_pallas2 as rp2
 from gpu_se_tpu_torch.ops import resample_pallas3 as rp3
@@ -87,8 +88,8 @@ def test_library_name_tracks_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "resample.cu", "resample_block.cu", "resample_coarse.cu",
-        "resample_expand.cu", "resample_merge.cu"]
+        "counter_draw.cu", "resample.cu", "resample_block.cu",
+        "resample_coarse.cu", "resample_expand.cu", "resample_merge.cu"]
 
 
 def test_library_name_tracks_headers(tmp_path, monkeypatch):
@@ -897,3 +898,62 @@ def test_two_ranks_on_one_card_over_gloo(cuda, route):
                                   want)
     for _, counts in ranks:
         assert all(counts[k] >= 1 for k in SHARD_ROUTES[route]), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start,count,nx,lanes_last", [
+    (0, 2**20, 5, False), (2**20, 2**20, 5, False), (0, 2**21, 5, True),
+    (0, 2**18 * 11, 5, True), (2**18 * 11, 2**18 * 11, 5, True),
+    (123457, 999983, 5, False), (2**32 - 1001, 4097, 3, True)])
+def test_counter_draw_equals_plain_on_card(cuda, start, count, nx,
+                                          lanes_last):
+    """The Philox words and the uniforms bit-equal to the plain version,
+    the normals within ``NORMAL_ATOL``; one launch, none for an empty
+    draw; slices concatenate to the whole draw."""
+    key = torch.tensor([0x1234ABCD, 0x0F0E0D0C], device=cuda)
+    before = cd.counter_draw.launches
+    empty = cd.counter_draw(key, start, 0, nx, lanes_last)
+    assert empty[1].shape == (0,)
+    assert cd.counter_draw.launches == before
+    eps, u, w = cd.counter_draw(key, start, count, nx, lanes_last,
+                                words=True)
+    torch.cuda.synchronize()
+    assert cd.counter_draw.launches == before + 1
+    p_eps, p_u, p_w = cd.counter_draw_plain(key, start, count, nx,
+                                            lanes_last, words=True)
+    assert torch.equal(w.to(torch.int64) & cd.MASK32, p_w)
+    assert torch.equal(u, p_u)
+    assert float((eps - p_eps).abs().max()) <= cd.NORMAL_ATOL
+    cut = count // 3 + 1
+    a, b = (cd.counter_draw(key, start, cut, nx, lanes_last),
+            cd.counter_draw(key, start + cut, count - cut, nx, lanes_last))
+    assert torch.equal(torch.cat([a[0], b[0]], dim=int(lanes_last)), eps)
+    assert torch.equal(torch.cat([a[1], b[1]]), u)
+
+
+@pytest.mark.gpu
+def test_graphed_pacf_chain_on_card(cuda):
+    """The pacf series' chain as one CUDA graph: the kernels launch K
+    times at the warm-up and K at capture, none at a replay; each replay
+    draws fresh noise and steps to finite particles; the series of a few
+    reps is one replay a rep (max |pacf| takes 12 or more)."""
+    from gpu_se_tpu_torch.results import _filter_bench as fb
+    from gpu_se_tpu_torch.results import pacf_series as ps
+
+    _, x0, state_pdf, meas_pdf = fb.rig_dists(cuda)
+    u, z, dt = fb.rig_inputs(cuda)
+    x = x0.draw_t(torch.Generator(device=cuda).manual_seed(1), 2**16)
+    before = (rp4.compact.launches, rp4.expand.launches)
+    chain = ps.GraphedChain(x, 5, ps.K, u, z, dt, state_pdf, meas_pdf)
+    captured = (rp4.compact.launches, rp4.expand.launches)
+    assert captured == (before[0] + 2 * ps.K, before[1] + 2 * ps.K)
+    one = chain.replay(x).clone()
+    two = chain.replay(x).clone()
+    torch.cuda.synchronize()
+    assert chain.replays == 2
+    assert (rp4.compact.launches, rp4.expand.launches) == captured
+    assert torch.isfinite(one).all() and torch.isfinite(two).all()
+    assert not torch.equal(one, two)
+    out = ps.pacf_series(2**16, ps.K, 12, gpu=True)
+    assert out["replays"] == 13 and len(out["device_series_ms"]) == 12
+    assert min(out["device_series_ms"]) > 0

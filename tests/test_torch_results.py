@@ -31,6 +31,7 @@ import importlib
 import io
 import os
 import pathlib
+import pickle
 import subprocess
 import sys
 
@@ -320,6 +321,32 @@ def test_pacf_series_small():
     assert len(out["series_ms"]) == 12 and out["median_rep_ms"] > 0
     assert 0 <= out["max_abs_pacf"] and out["gate_passed"] == (
         out["max_abs_pacf"] < 0.2)
+    assert out["chain"].startswith("eager") and "device_series_ms" not in out
+
+
+def test_pacf_chain_body_equals_k_eager_steps():
+    """The body a graph captures on the card is K tiled steps, equal to
+    K calls of ``particle_tiled.step`` from the same generator state."""
+    ps, fb = port("pacf_series"), port("_filter_bench")
+    from gpu_se_tpu_torch.filters import particle_tiled as tpt
+    from gpu_se_tpu_torch.models import bioreactor as tbio
+
+    _, x0, state_pdf, meas_pdf = fb.rig_dists(torch.device(CPU))
+    u, z, dt = fb.rig_inputs(torch.device(CPU))
+    x = x0.draw_t(torch.Generator().manual_seed(3), 512)
+    got = ps.chain_steps(x, torch.Generator().manual_seed(4), ps.K, u, z,
+                         dt, state_pdf, meas_pdf)
+    st = tpt.TiledPFState(x, torch.Generator().manual_seed(4))
+    for _ in range(ps.K):
+        st = tpt.step(st, u, z, dt, tbio.homeostatic_des,
+                      tbio.static_outputs, state_pdf, meas_pdf)
+    assert torch.equal(got, st.x) and torch.isfinite(got).all()
+
+
+def test_graphed_pacf_series_needs_the_card():
+    with pytest.raises(ValueError, match="needs the card"):
+        port("pacf_series").pacf_series(256, 2, 3, gpu=False, graphed=True)
+    assert port("pacf_series").drift([1.0] * 30 + [2.0] * 30) == 1.0
 
 
 # ----------------------------------------------------------------------
@@ -372,6 +399,78 @@ def test_plot_without_card_memos_raises(plot, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA card"):
         mod.plot(2) if "power" not in plot else mod.plot(0.1)
     assert all(gpu for *_, gpu in built)
+
+
+def _fake_card_memos(name):
+    """Write the card's memos a closed-loop figure reads, small and made
+    up, into the test's jar."""
+    from gpu_se_tpu_torch.utils.cache import argument_hash
+
+    mod = port(f"bioreactor_closedloop.{name}")
+    ts = np.linspace(0, 5, 50)
+    rng = np.random.default_rng(0)
+    tr = {"device": "a card", "ts": ts, "ys": rng.random((50, 5)),
+          "ys_meas": rng.random((50, 5)), "us": rng.random((50, 2)),
+          "biass": rng.random((4, 2)), "ysp": np.array([0.5, 0.6]),
+          "inputs": [0, 1], "outputs": [0, 2], "itse": 1.0,
+          "dt_control": 1, "end_time": 5}
+    if name == "performance_vs_control_period":
+        fn = mod.get_simulation_performance
+        calls = [((float(dtc), mc), 1.0 + mc) for dtc in np.logspace(
+            np.log10(0.1), np.log10(30), 12) for mc in range(3)]
+    else:
+        fn = mod.trajectory if name == "no_noise" else mod.noisy_trajectory
+        calls = [((), tr)]
+    for args, value in calls:
+        fn._check_code()
+        fn.store_backend.write_atomic(
+            fn.store_backend.memo_path(argument_hash(fn.func, args, {})),
+            pickle.dumps(value))
+    return mod
+
+
+CLOSED_LOOP_PLOTS = ["no_noise", "with_noise",
+                     "performance_vs_control_period"]
+
+
+@pytest.mark.parametrize("name", CLOSED_LOOP_PLOTS)
+def test_closed_loop_plot_reads_card_memos(name, monkeypatch, tmp_path):
+    """The figure draws from the card's memos, on a host without a card
+    too, and computes nothing."""
+    pytest.importorskip("matplotlib")
+    mod = _fake_card_memos(name)
+    monkeypatch.setattr(port("_common"), "FIG_DIR", str(tmp_path / "figs"))
+    monkeypatch.setattr(port("_common"), "card_label", lambda: "a card")
+    monkeypatch.setattr(mod, "simulate", None, raising=False)
+    if name == "performance_vs_control_period":
+        monkeypatch.setattr(mod, "card_label", lambda: "a card")
+        monkeypatch.setattr(mod.sim, "get_parts", None)
+    path = mod.plot()
+    assert os.path.exists(path) and str(tmp_path) in path
+
+
+@pytest.mark.parametrize("name", CLOSED_LOOP_PLOTS)
+def test_closed_loop_plot_without_card_memo_raises(name, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    mod = port(f"bioreactor_closedloop.{name}")
+    monkeypatch.setattr(mod.sim, "get_parts", None)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        mod.plot()
+
+
+def test_closed_loop_trajectory_memo_on_the_cpu():
+    """The memoized trajectories, on the CPU, label their device and
+    carry the loop's ITSE; the second call reads the memo."""
+    mod = port("bioreactor_closedloop.no_noise")
+    tr = mod.trajectory(end_time=5, dt_control=1, device=CPU)
+    assert tr["device"] == "CPU" and np.isfinite(tr["itse"])
+    assert tr["ys"].shape == (len(tr["ts"]), 5)
+    again = mod.trajectory(end_time=5, dt_control=1, device=CPU)
+    np.testing.assert_array_equal(again["us"], tr["us"])
+    noisy = port("bioreactor_closedloop.with_noise").noisy_trajectory(
+        end_time=5, dt_control=1, seed=1, device=CPU)
+    assert noisy["device"] == "CPU" and np.isfinite(noisy["ys_meas"]).all()
 
 
 def test_card_label(monkeypatch, tmp_path):

@@ -25,6 +25,11 @@ The inputs are numpy arrays from seeds; n = 16384 particles in all
   (flat ``rtol=2e-5, atol=1e-6``; GSUKF means ``rtol=1e-4, atol=1e-5``,
   covariances ``rtol=1e-4, atol=3e-6``, ``tests/test_sharding.py``) are
   within the same bound;
+* the entry points' own steps (``step``, not ``from_noise``) from one
+  seeded generator are bit-equal across W = 1, 2, 4 and every route, and
+  equal to ``from_noise`` fed the global counter draw (the key and ``r``
+  from that generator); each rank's counter draw covers exactly its own
+  ``n_local`` samples (``n_local (2 nx + 1)`` for the GSUKF);
 * the auto-sharded steps are bit-equal to the port's single-device step;
 * the scenario solvers with a mesh: controls within 1e-4 of the
   reference's with a mesh of the same width, the same worst status (the
@@ -63,9 +68,13 @@ from gpu_se_tpu_torch.filters import gs_ukf as tgs
 from gpu_se_tpu_torch.filters import particle as tpf
 from gpu_se_tpu_torch.models import LinearModel
 from gpu_se_tpu_torch.models import bioreactor as tbio
+from gpu_se_tpu_torch.ops import counter_draw as tcd
 from gpu_se_tpu_torch.parallel import (
     make_consensus_scenario_step,
+    make_mesh,
     make_scenario_solver,
+    make_shard_map_gsukf_step,
+    make_shard_map_step,
 )
 from gpu_se_tpu_torch.parallel.launch import run_group
 
@@ -414,6 +423,65 @@ def test_gsukf_step_vs_reference(runs, nd):
         want_m, want_c = ref["gsukf_step"][nd]
         assert _rows_apart(m, want_m, 1e-4, 1e-5) <= bound, name
         assert _rows_apart(c, want_c, 1e-4, 3e-6) <= bound, name
+
+
+def _counter_steps(d):
+    """The W = 1 ``from_noise`` steps fed the global counter draw: the key
+    and then ``r`` from the generator seeded ``d["seed"]``, as the entry
+    points draw them."""
+    gs = {k: convert.gaussian_sum_from_numpy(*d[k], device="cpu")
+          for k in ("state_pdf", "meas")}
+    u, z, dt = (torch.from_numpy(np.asarray(d[k])) for k in ("u", "z", "dt"))
+    f, g = tbio.homeostatic_des, tbio.static_outputs
+    mesh = make_mesh(device="cpu")
+
+    def key_r():
+        gen = torch.Generator().manual_seed(d["seed"])
+        key = tcd.key_from(gen, "cpu")
+        return key, torch.rand((), generator=gen)
+
+    key, r = key_r()
+    noise = gs["state_pdf"].draw_from(*gs["state_pdf"].draw_inputs_at(
+        key, 0, N))
+    parts, weights = make_shard_map_step(mesh, f, g).from_noise(
+        torch.tensor(d["step_x"]), torch.tensor(d["step_w"]), u, z,
+        dt, gs["meas"], noise, r)
+    nx = d["g_means"].shape[1]
+    s = 2 * nx + 1
+    key, r = key_r()
+    g_noise = gs["state_pdf"].draw_t_from(*gs["state_pdf"].draw_inputs_at_t(
+        key, 0, N_GSUKF * s)).reshape(nx, N_GSUKF, s).permute(2, 0, 1)
+    (m, c), _ = make_shard_map_gsukf_step(mesh, f, g).from_noise(
+        *(torch.tensor(d[k]) for k in ("g_means", "g_covs", "g_weights")),
+        u, z, dt, gs["meas"], g_noise, r)
+    return (parts.numpy(), weights.numpy()), (m.numpy(), c.numpy())
+
+
+@pytest.mark.parametrize("nd", WIDTHS)
+def test_sharded_steps_bit_equal_across_widths(runs, nd):
+    d, _, port = runs
+    flat, bank = _counter_steps(d)
+    for name, got in port[nd]["step"].items():
+        for a, b in zip(got, flat):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    for name, got in port[nd]["gsukf_own_step"].items():
+        for a, b in zip(got, bank):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert np.isfinite(flat[0]).all() and np.isfinite(bank[1]).all()
+
+
+@pytest.mark.parametrize("nd", WIDTHS)
+def test_each_rank_draws_only_its_slice(runs, nd):
+    _, _, port = runs
+    nx = 5
+    for path, draws in port[nd]["draws"].items():
+        flat = path.startswith("flat")
+        n_local = (N if flat else N_GSUKF) // nd
+        s = 1 if flat else 2 * nx + 1
+        assert draws.shape == (nd, 1, 3), (path, draws.shape)
+        for rank in range(nd):
+            assert tuple(draws[rank, 0]) == (rank * n_local * s,
+                                             n_local * s, nx), (path, rank)
 
 
 @pytest.mark.parametrize("nd", WIDTHS)
