@@ -27,11 +27,15 @@ Phases, each of which raises on failure:
    noise) against its plain version at the main paths' draws (2^20
    samples a rank of the flat step, rows, from 0 and 2^20; 2^21
    lanes-last; 2^18 x 11 a rank of the GSUKF step, lanes-last, from 0
-   and 2^18 x 11), an odd start and count and a range across the
-   counter's 32-bit carry: the words and uniforms bit-equal, the normals
-   within ``NORMAL_ATOL``;
-   slices of 2^21 samples concatenated bit-equal to the whole draw; timed
-   at a rank's 2^20-sample draw beside ``torch.randn`` plus ``torch.rand``;
+   and 2^18 x 11), an odd start and count, a range across the counter's
+   32-bit carry, and every nx with an instantiation of its own (1 to 5)
+   and two without (6, 7) in both layouts, from unaligned starts and for
+   counts that fill no whole block or float4: the production kernel's
+   uniforms bit-equal, the normals within ``NORMAL_ATOL``, the
+   verification hook's words bit-equal; slices of 2^21 samples
+   concatenated bit-equal to the whole draw; timed at a rank's
+   2^20-sample draw, rows, and at the GSUKF's 2^18 x 11, lanes-last, each
+   beside ``torch.randn`` plus ``torch.rand`` of the same shape;
 4. the CUDA tiled and flat steps against the committed reference step
    (``tests/data/torch_parity_step.npz``);
 5. the tiled main path: the tiled particle-filter step of ``bench.py``'s
@@ -325,6 +329,9 @@ PEAK_OPS = 67e12
 # on an NVIDIA H100 80GB HBM3 at 700.00 W)
 ONE_THREAD_PER_SLOT_MS = {"ends_merge_round": 0.0665, "cumsum_merge": 0.0372,
                           "coarse_gather": 0.0227}
+# and of the one-thread-per-sample first design of counter_draw, at a
+# rank's 2^20 samples, rows, and at the GSUKF's 2^18 x 11, lanes-last
+ONE_THREAD_PER_SAMPLE_MS = {"rows": 0.0353, "lanes-last": 0.0599}
 # rows of a 4096-particle step that may differ from the reference's: one
 # per `ends` entry a cumsum tie moves (tests/test_torch_kernels.py)
 STEP_TIE_ROWS = 8
@@ -362,15 +369,6 @@ KERNELS = {
                      "gpu_se_tpu/parallel/sharded.py:1015 and :1133",
                      cdraw.counter_draw),
 }
-# counter_draw against its plain version: (start, count, nx, lanes_last)
-# at the main paths' draws (the flat step's 2^20 samples a rank, rows,
-# at W = 1 and as W = 2's rank 1; 2^21 lanes-last; the GSUKF step's
-# 2^18 x 11 samples a rank, lanes-last, as W = 2's rank 0 and rank 1),
-# an odd start and count, and a range across the counter's 32-bit carry
-COUNTER_CASES = ((0, 2**20, 5, False), (2**20, 2**20, 5, False),
-                 (0, 2**21, 5, True), (0, N_BANK * 11, 5, True),
-                 (N_BANK * 11, N_BANK * 11, 5, True),
-                 (123457, 999983, 5, False), (2**32 - 1001, 4097, 3, True))
 COUNTER_KEY = (0x1234ABCD, 0x0F0E0D0C)
 # the kernel each flat-filter route must launch once per step
 ROUTE_KERNELS = {"auto": ("compact", "expand"),
@@ -795,19 +793,21 @@ def phase_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
 
 
 def phase_counter_draw(dev, card: str):
-    """``counter_draw`` against its plain version on ``COUNTER_CASES``:
-    the Philox words and the uniforms bit-equal, the normals within
-    ``counter_draw.NORMAL_ATOL``; slices that concatenate bit-equal to
-    the whole draw, in both layouts; then timed at the sharded flat
-    step's draw (a rank's 2^20 samples, nx = 5, rows) beside its bound
-    and ``torch.randn`` plus ``torch.rand`` of the same shape. Returns
-    ``(max |error|, (ms, plain ms), bound, library ms)``; its launches
-    here are not counted."""
+    """``counter_draw`` against its plain version on ``rig.COUNTER_CASES``:
+    the production kernel's uniforms bit-equal and its normals within
+    ``counter_draw.NORMAL_ATOL``, the verification hook's Philox words
+    bit-equal; slices that concatenate bit-equal to the whole draw, in
+    both layouts; then timed at the sharded flat step's draw (a rank's
+    2^20 samples, nx = 5, rows) and the GSUKF step's (2^18 x 11,
+    lanes-last), each beside its bound, the first design's time and
+    ``torch.randn`` plus ``torch.rand`` of the same shape. Returns
+    ``(max |error|, (ms, plain ms), bound, library ms)`` of the flat
+    step's draw; its launches here are not counted."""
     key = torch.tensor(COUNTER_KEY, dtype=torch.int64, device=dev)
     err = 0.0
-    for start, count, nx, lanes in COUNTER_CASES:
-        eps, u, w = cdraw.counter_draw(key, start, count, nx, lanes,
-                                       words=True)
+    for start, count, nx, lanes in rig.COUNTER_CASES:
+        eps, u = cdraw.counter_draw(key, start, count, nx, lanes)
+        w = cdraw.counter_words(key, start, count, nx)
         p_eps, p_u, p_w = cdraw.counter_draw_plain(key, start, count, nx,
                                                    lanes, words=True)
         if not torch.equal(w.to(torch.int64) & cdraw.MASK32, p_w):
@@ -822,8 +822,9 @@ def phase_counter_draw(dev, card: str):
                                  f"{cdraw.NORMAL_ATOL})")
         err = max(err, e)
         log(f"counter_draw == plain: samples [{start}, {start + count}), "
-            f"nx={nx}, {'lanes-last' if lanes else 'rows'}: words and "
-            f"uniforms bit-equal, normals within {e:.3g}")
+            f"nx={nx} (kernel NX={cdraw.kernel_nx(nx)}), "
+            f"{'lanes-last' if lanes else 'rows'}: words and uniforms "
+            f"bit-equal, normals within {e:.3g}")
     cuts = (0, 1, 4097, N_W2 // 2 + 7, N_W2 - 3, N_W2)
     for lanes in (False, True):
         whole = cdraw.counter_draw(key, 0, N_W2, 5, lanes)
@@ -834,21 +835,25 @@ def phase_counter_draw(dev, card: str):
         assert_equal(f"counter_draw slices {cuts}", joined, whole)
     log(f"counter_draw: slices {cuts} of {N_W2} samples == the whole draw "
         f"bit for bit, rows and lanes-last")
-    kern = lambda: cdraw.counter_draw(key, 0, N, 5)  # noqa: E731
-    plain = lambda: cdraw.counter_draw_plain(key, 0, N, 5)  # noqa: E731
-    bound = least_time(cdraw.draw_bytes(N, 5), cdraw.draw_ops(N, 5))
-    times = time_pair("counter_draw", kern, plain, card, bound)
-    library_ms = device_ms(lambda: (torch.randn((N, 5), device=dev),
-                                    torch.rand((N,), device=dev)))
-    s_bank = N_BANK * 11
-    bank_ms = device_ms(lambda: cdraw.counter_draw(key, 0, s_bank, 5, True))
-    bank_bound = least_time(cdraw.draw_bytes(s_bank, 5),
-                            cdraw.draw_ops(s_bank, 5))
-    log(f"time counter_draw: torch.randn + torch.rand of the same shape "
-        f"{library_ms:.4f} ms; at the GSUKF's {s_bank} samples lanes-last "
-        f"{bank_ms:.4f} ms, bound {bank_bound[0]:.4f} ms ({card})")
+    out = {}
+    for layout, count, lanes in (("rows", N, False),
+                                 ("lanes-last", N_BANK * 11, True)):
+        shape = (5, count) if lanes else (count, 5)
+        bound = least_time(cdraw.draw_bytes(count, 5),
+                           cdraw.draw_ops(count, 5))
+        args = (key, 0, count, 5, lanes)
+        times = time_pair(
+            f"counter_draw {layout} {count}",
+            lambda a=args: cdraw.counter_draw(*a),
+            lambda a=args: cdraw.counter_draw_plain(*a),
+            card, bound, before=ONE_THREAD_PER_SAMPLE_MS[layout])
+        library_ms = device_ms(lambda a=(shape, count): (
+            torch.randn(a[0], device=dev), torch.rand((a[1],), device=dev)))
+        log(f"time counter_draw {layout} {count}: torch.randn + torch.rand "
+            f"of the same shape {library_ms:.4f} ms ({card})")
+        out[layout] = times, bound, library_ms
     zero_counts()
-    return err, times, bound, library_ms
+    return (err, *out["rows"])
 
 
 def phase_merge_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
@@ -1301,7 +1306,7 @@ def time_pair(name: str, kern, plain, card: str, bound, setup=None,
                       device_ms(kern, reps, setup),
                       device_ms(plain, reps, setup))
     was = ("" if before is None else
-           f"; the one-thread-per-slot kernel took {before:.4f} ms")
+           f"; the first design took {before:.4f} ms")
     log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
         f"ms (device time, mean of {reps}, {card}); bound {bound[0]:.4f} ms "
         f"({bound[1]}){was}")

@@ -62,8 +62,10 @@ _SIGNATURES = {
     "gst_expand": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
     # nx -> 32-bit words a sample of counter_draw takes
     "gst_counter_draw_words": [_I],
-    # key, start, count, nx, lanes_last, words, eps, u, stream
-    "gst_counter_draw": [_P, ctypes.c_longlong, _I, _I, _I, _P, _P, _P, _P],
+    # key, start, count, nx, fixed_nx, lanes_last, eps, u, stream
+    "gst_counter_draw": [_P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P],
+    # key, start, count, nx, words, stream
+    "gst_counter_words": [_P, ctypes.c_longlong, _I, _I, _P, _P],
 }
 
 

@@ -21,10 +21,17 @@ dropped for an odd ``nx``.
 :func:`counter_draw` (``csrc/counter_draw.cu``) launches the kernel for
 a CUDA key and takes :func:`counter_draw_plain` (torch int64 ops, the
 32-bit products split into 16-bit halves) for a CPU one; there is no
-fallback from one to the other. ``counter_draw.launches`` counts
-launches (an empty draw launches nothing). The two give the same words bit for bit and the same
-uniforms; the normals go through the CUDA and the CPU ``log``, ``sqrt``,
-``sin`` and ``cos`` of float32, which part by an ulp or two:
+fallback from one to the other. The kernel is compiled once for each
+``nx`` up to :data:`MAX_FIXED_NX` (the main paths draw ``nx = 5``);
+any other ``nx`` takes its run-time-``nx`` kernel (:func:`kernel_nx`).
+``counter_draw.launches`` counts launches (an empty draw launches
+nothing). :func:`counter_words` is a verification hook: a kernel of its
+own writes the raw Philox words of the same samples, so that tests hold
+the integer stream to the plain version's bit for bit; no step calls it,
+and the draw's kernel takes no pointer for it. The two give the same
+words bit for bit and the same uniforms; the normals go through the
+CUDA ``logf``, ``sqrtf`` and ``sincospif`` and the CPU's float32
+``log``, ``sqrt``, ``sin`` and ``cos``, which part by a few ulp:
 :data:`NORMAL_ATOL` bounds them.
 """
 from __future__ import annotations
@@ -40,17 +47,29 @@ W0, W1 = 0x9E3779B9, 0xBB67AE85      # the key's Weyl increments
 ROUNDS = 10
 MASK32 = 0xFFFFFFFF
 TWO_PI = 6.28318530717958647692      # rounded to float32 before use
-# |kernel - plain| of a normal: |z| < 5.8 (u1 >= 2^-24); the card's logf
-# (1 ulp), sqrtf (correctly rounded) and sincosf (2 ulp) and the CPU's
-# float32 log, sqrt and sin/cos (each within an ulp or two) keep the two
-# within a few float32 ulp of 5.8 (4.8e-7 each)
+# |kernel - plain| of a normal: |z| < 5.8 (u1 >= 2^-24); the kernel takes
+# sincospif of 2 u2 (exact), the plain version sin/cos of float32(2 pi) u2
+# rounded, an angle up to 4.1e-7 off (2.4e-6 at |z| = 5.77); the card's
+# logf (1 ulp), sqrtf (correctly rounded) and sincospif (1 ulp) and the
+# CPU's float32 log, sqrt and sin/cos (each within an ulp or two) add a
+# few float32 ulp of 5.8 (4.8e-7 each)
 NORMAL_ATOL = 8e-6
+# the largest nx with a compile-time instantiation of the kernel
+# (``csrc/counter_draw.cu`` launch(); the library refuses another)
+MAX_FIXED_NX = 5
 
 
 def blocks_of(nx: int) -> int:
     """The Philox blocks a sample takes: one word for its uniform, two a
     pair of normals."""
     return (2 * ((nx + 1) // 2) + 4) // 4
+
+
+def kernel_nx(nx: int) -> int:
+    """The compile-time ``NX`` of the kernel that draws ``nx`` normals a
+    sample: ``nx`` itself up to :data:`MAX_FIXED_NX`, else 0, the kernel
+    with ``nx`` at run time."""
+    return nx if 1 <= nx <= MAX_FIXED_NX else 0
 
 
 def key_from(generator: torch.Generator, device) -> torch.Tensor:
@@ -133,46 +152,69 @@ def counter_draw_plain(key: torch.Tensor, start: int, count: int, nx: int,
     return (eps, u, w) if words else (eps, u)
 
 
-def counter_draw(key: torch.Tensor, start: int, count: int, nx: int,
-                 lanes_last: bool = False, words: bool = False):
-    """``nx`` standard normals and one uniform in ``[0, 1)`` for each of
-    the samples ``[start, start + count)`` of the stream keyed by ``key``
-    (``(2,)`` int64, the low 32 bits of each entry the Philox key).
-
-    Returns ``(eps, u)``: ``eps`` float32 ``(count, nx)``, or ``(nx,
-    count)`` where ``lanes_last``, and ``u`` float32 ``(count,)``, on the
-    key's device. With ``words``, also the ``(count, 4 blocks_of(nx))``
-    Philox words (int64 from the plain version, int32 holding the same
-    bits from the kernel): a verification hook, kept so that the tests
-    and the smoke run hold the kernel's integer stream to the plain
-    version's bit for bit, apart from the float transforms. No step
-    asks for it.
-    """
-    dev = key.device
-    _build.check("key", key, torch.int64, 1, dev)
+def _checked(key: torch.Tensor, start: int, count: int, nx: int):
+    """``(start, count, nx)`` as ints; raises on a key or range the
+    kernels do not take."""
+    _build.check("key", key, torch.int64, 1, key.device)
     if key.shape[0] != 2:
         raise ValueError(f"key {tuple(key.shape)}: expected (2,)")
     start, count, nx = int(start), int(count), int(nx)
     if start < 0 or count < 0 or nx < 1 or start + count > 2**63 - 1 \
             or count > 2**31 - 1:
         raise ValueError(f"start {start}, count {count}, nx {nx}")
+    return start, count, nx
+
+
+def counter_words(key: torch.Tensor, start: int, count: int,
+                  nx: int) -> torch.Tensor:
+    """The verification hook: the ``(count, 4 blocks_of(nx))`` Philox
+    words of the samples ``[start, start + count)``, int64 from the plain
+    version for a CPU key, int32 holding the same bits from a kernel of
+    their own (``gst_counter_words``) for a CUDA one. Tests and the smoke
+    run hold the kernels' integer stream to the plain version's with it;
+    no step calls it, and it adds nothing to ``counter_draw.launches``."""
+    start, count, nx = _checked(key, start, count, nx)
+    dev = key.device
     if not _build.on_cuda(key):
-        return counter_draw_plain(key, start, count, nx, lanes_last, words)
+        return words_plain(key, start, count, nx)
+    lib = _build.load_library()
+    w = torch.empty((count, 4 * blocks_of(nx)), dtype=torch.int32,
+                    device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gst_counter_words(key.data_ptr(), start, count, nx,
+                                   w.data_ptr(), _build.stream(dev))
+    _build.launch_check("counter_words", rc)
+    return w
+
+
+def counter_draw(key: torch.Tensor, start: int, count: int, nx: int,
+                 lanes_last: bool = False):
+    """``nx`` standard normals and one uniform in ``[0, 1)`` for each of
+    the samples ``[start, start + count)`` of the stream keyed by ``key``
+    (``(2,)`` int64, the low 32 bits of each entry the Philox key).
+
+    Returns ``(eps, u)``: ``eps`` float32 ``(count, nx)``, or ``(nx,
+    count)`` where ``lanes_last``, and ``u`` float32 ``(count,)``, on the
+    key's device; :func:`counter_words` gives the Philox words of the
+    same samples.
+    """
+    start, count, nx = _checked(key, start, count, nx)
+    dev = key.device
+    if not _build.on_cuda(key):
+        return counter_draw_plain(key, start, count, nx, lanes_last)
     lib = _build.load_library()
     shape = (nx, count) if lanes_last else (count, nx)
     eps = torch.empty(shape, dtype=torch.float32, device=dev)
     u = torch.empty((count,), dtype=torch.float32, device=dev)
-    w = (torch.empty((count, 4 * blocks_of(nx)), dtype=torch.int32,
-                     device=dev) if words else None)
     with torch.cuda.device(dev):
         rc = lib.gst_counter_draw(
-            key.data_ptr(), start, count, nx, int(lanes_last),
-            None if w is None else w.data_ptr(), eps.data_ptr(),
-            u.data_ptr(), _build.stream(dev))
+            key.data_ptr(), start, count, nx, kernel_nx(nx),
+            int(lanes_last), eps.data_ptr(), u.data_ptr(),
+            _build.stream(dev))
     _build.launch_check("counter_draw", rc)
     if count:
         counter_draw.launches += 1
-    return (eps, u, w) if words else (eps, u)
+    return eps, u
 
 
 counter_draw.launches = 0

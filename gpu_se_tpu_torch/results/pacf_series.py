@@ -17,14 +17,20 @@ whose state every replay advances. A capture that fails raises. On the
 CPU (``gpu=False``) the chain runs eagerly, step by step, from a
 freshly seeded generator a rep, as it also can on the card
 (``graphed=False``), for comparison.
-Each rep records its host ms (the perf-counter around the copy, the
-chain and the synchronise) and its device ms (CUDA events on the
-stream, the card only).
+Each rep starts from the same particles shifted by :func:`rep_offset`,
+at most ~4e-5 as the reference's ``tiled0 + 1e-9 * seed`` is, so every
+rep filters the same cloud. Each rep records its host ms (the
+perf-counter around the copy, the chain and the synchronise), split into
+the part up to the synchronise (the copy and the replay's launch, or the
+eager chain's launches) and the synchronise, and its device ms (CUDA
+events on the stream, the card only); the card's SM clock is read by
+``nvidia-smi`` before and after the series.
 
 Usage: ``python -m gpu_se_tpu_torch.results.pacf_series`` (the card)
 prints the series' summary as one JSON line.
 """
 import json
+import subprocess
 import time
 
 import numpy as np
@@ -39,6 +45,7 @@ from gpu_se_tpu_torch.results._filter_bench import (
     rig_inputs,
 )
 from gpu_se_tpu_torch.utils import max_abs_pacf
+from gpu_se_tpu_torch.utils.power import _card_id
 
 N = 2**20
 K = 8
@@ -88,6 +95,29 @@ class GraphedChain:
         return self.out
 
 
+def rep_offset(rng) -> float:
+    """A rep's shift of every input coordinate: the reference's ``1e-9 *
+    seed`` with ``seed = |N(0, 1)| 1e4`` in float32
+    (``scripts/pacf_series.py:62``, ``:92-94``), about 4e-5 at most."""
+    seed = np.float32(abs(rng.standard_normal()) * 1e4)
+    return float(np.float32(1e-9) * seed)
+
+
+def sm_clock_mhz():
+    """The card's SM clock by ``nvidia-smi``, MHz; None without a card or
+    a reading."""
+    card = _card_id()
+    if card is None:
+        return None
+    try:
+        return float(subprocess.check_output(
+            ["nvidia-smi", "-i", card, "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"],
+            stderr=subprocess.DEVNULL, timeout=5))
+    except (OSError, ValueError, subprocess.SubprocessError):
+        return None
+
+
 def drift(series) -> float:
     """The median of the last :data:`DRIFT_REPS` reps over that of the
     first, minus one."""
@@ -99,10 +129,11 @@ def drift(series) -> float:
 def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
     """Time ``reps`` synchronised chains of ``k`` tiled steps at ``n``
     particles after one warm-up chain; returns the series (host ms a
-    rep, and device ms a rep on the card), its median, the time of an
-    empty synchronise, max |pacf| and the drift. ``graphed`` (default:
-    ``gpu``) runs each rep as one graph replay; ``gpu=False`` needs
-    ``graphed`` false."""
+    rep, split into the launch and the synchronise, and device ms a rep
+    on the card), its median, the time of an empty synchronise, max
+    |pacf|, the drift and the card's SM clock before and after.
+    ``graphed`` (default: ``gpu``) runs each rep as one graph replay;
+    ``gpu=False`` needs ``graphed`` false."""
     dev = get_device(gpu)
     graphed = gpu if graphed is None else graphed
     if graphed and not gpu:
@@ -132,9 +163,11 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
         nulls.append((time.perf_counter() - t0) * 1e3)
     null_ms = float(np.median(nulls))
 
+    clock_before = sm_clock_mhz() if gpu else None
     series, device = np.empty(reps), np.full(reps, np.nan)
+    launch, sync = np.empty(reps), np.empty(reps)
     for i in range(reps):
-        x = x_init + 1e-9 * float(rng.integers(2**31))
+        x = x_init + rep_offset(rng)
         _sync(x)
         if gpu:
             start = torch.cuda.Event(enable_timing=True)
@@ -145,10 +178,14 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
         run(x)
         if gpu:
             end.record()
+        t1 = time.perf_counter()
         _sync(x)
-        series[i] = (time.perf_counter() - t0) * 1e3
+        t2 = time.perf_counter()
+        series[i] = (t2 - t0) * 1e3
+        launch[i], sync[i] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
         if gpu:
             device[i] = start.elapsed_time(end)
+    clock_after = sm_clock_mhz() if gpu else None
     pacf = float(max_abs_pacf(series / 1e3))
     med = float(np.median(series))
     out = {
@@ -164,6 +201,13 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
         "gate_passed": bool(pacf < 0.2),
         "drift": drift(series) if reps >= 2 * DRIFT_REPS else None,
         "series_ms": series.tolist(),
+        "launch_series_ms": launch.tolist(),
+        "sync_series_ms": sync.tolist(),
+        "launch_median_ms": float(np.median(launch)),
+        "sync_median_ms": float(np.median(sync)),
+        "launch_max_abs_pacf": float(max_abs_pacf(launch / 1e3)),
+        "sync_max_abs_pacf": float(max_abs_pacf(sync / 1e3)),
+        "sm_clock_mhz": {"before": clock_before, "after": clock_after},
     }
     if gpu:
         out.update(

@@ -250,3 +250,27 @@ def binding_case():
         um1=np.zeros(2), biases=np.zeros((4, 2)),
         y_bounds=[np.array([-0.8, 0.8]), np.array([-0.8, 0.8])],
     )
+
+
+# ----------------------------------------------------------------------
+# cases of counter_draw: (start, count, nx, lanes_last)
+# ----------------------------------------------------------------------
+# the main paths' draws (the flat step's 2^20 samples a rank, rows, at
+# W = 1 and as W = 2's rank 1; 2^21 lanes-last; the GSUKF step's 2^18 x 11
+# samples a rank, lanes-last, as W = 2's rank 0 and rank 1), an odd start
+# and count, a range across the counter's 32-bit carry; then every
+# compile-time nx (1 .. ops/counter_draw.MAX_FIXED_NX) and two run-time
+# ones (6, 7), in both layouts, from unaligned starts, for counts that are
+# no multiple of a block's 512 samples or of a float4 (a lanes-last row
+# then starts off 16 bytes), and a draw smaller than one thread's four
+# samples
+COUNTER_CASES = ((0, 2**20, 5, False), (2**20, 2**20, 5, False),
+                 (0, 2**21, 5, True), (0, 2**18 * 11, 5, True),
+                 (2**18 * 11, 2**18 * 11, 5, True),
+                 (123457, 999983, 5, False), (2**32 - 1001, 4097, 3, True),
+                 (7, 4099, 1, False), (7, 4099, 1, True),
+                 (1, 5003, 2, False), (1, 5003, 2, True),
+                 (2**31 + 3, 3001, 3, False), (99, 2053, 4, False),
+                 (99, 2053, 4, True), (2**33 + 5, 515, 5, True),
+                 (11, 3, 5, False), (13, 1027, 6, False),
+                 (13, 1027, 7, False), (2**32 - 5, 1027, 7, True))

@@ -194,3 +194,83 @@ def test_draw_inputs_at_t_is_the_same_draw_lanes_last(name):
                                atol=1e-6)
     assert math.isclose(float(lanes.mean()), float(rows.mean()),
                         rel_tol=1e-5, abs_tol=1e-6)
+
+
+@pytest.mark.parametrize("nx,want", [(1, 1), (2, 2), (3, 3), (4, 4), (5, 5),
+                                     (6, 0), (7, 0), (30, 0)])
+def test_kernel_nx_dispatch(nx, want):
+    """``nx`` up to ``MAX_FIXED_NX`` takes its own compile-time kernel,
+    any other the run-time-nx one; the main paths' nx has its own."""
+    assert cd.kernel_nx(nx) == want
+    assert cd.kernel_nx(rig.NX) == rig.NX
+
+
+def test_counter_words_hook_on_cpu():
+    """The verification hook gives the plain words on the CPU, with the
+    draw's checks, and launches nothing."""
+    before = cd.counter_draw.launches
+    w = cd.counter_words(_key(), 2**32 - 3, 7, 5)
+    assert torch.equal(w, cd.words_plain(_key(), 2**32 - 3, 7, 5))
+    _, _, w2 = cd.counter_draw_plain(_key(), 2**32 - 3, 7, 5, words=True)
+    assert torch.equal(w2, w)
+    assert cd.counter_draw.launches == before
+    for bad in ((_key().to(torch.int32), 0, 4, 5),
+                (torch.zeros(3, dtype=torch.int64), 0, 4, 5),
+                (_key(), -1, 4, 5), (_key(), 0, -1, 5), (_key(), 0, 4, 0),
+                (_key(), 2**63 - 2, 4, 5), (_key(), 0, 2**31, 5)):
+        with pytest.raises((TypeError, ValueError)):
+            cd.counter_words(*bad)
+
+
+def test_study_reads_ptxas_and_cuobjdump():
+    """The study's readers on lines in the form ``nvcc -Xptxas -v`` and
+    ``cuobjdump -sass`` print them: the issue floor leaves out the
+    stores and what a forward conditional branch skips."""
+    from gpu_se_tpu_torch.results import counter_draw_study as cs
+
+    name = "_ZN12_GLOBAL__N_110draw_fixedILi5ELb0EEEvPKxxiPfS3_"
+    ptxas = (f"ptxas info    : Compiling entry function '{name}' for "
+             f"'sm_90a'\nptxas info    : Function properties for {name}\n"
+             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+             "loads\nptxas info    : Used 72 registers, used 1 barriers, "
+             "10240 bytes smem, 400 bytes cmem[0]\n")
+    assert cs.ptxas_info(ptxas) == {"draw_fixed<5, rows>": {
+        "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+        "registers": 72, "smem_bytes": 10240}}
+    sass = "\n".join([
+        f"\t\tFunction : {name}",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+        "        /*0010*/              @!P0 BRA 0x40 ;",
+        "        /*0020*/                   CALL.REL.NOINC 0x80 ;",
+        "        /*0030*/                   BRA 0x50 ;",
+        "        /*0040*/                   IMAD.WIDE.U32 R2, R3, R4, RZ ;",
+        "        /*0050*/                   STG.E.128 desc[UR6][R2.64], R4 ;",
+        "        /*0060*/                   EXIT ;",
+        "        /*0070*/                   NOP;",
+        "\t\tFunction : _ZN12_GLOBAL__N_110draw_wordsEPKxxiiPj",
+        "        /*0000*/                   EXIT ;"])
+    got = cs.sass_counts(sass)
+    assert got["draw_fixed<5, rows>"] == {
+        "instructions": 7, "issue_floor": 3,
+        "opcodes": {"LDC": 1, "BRA": 2, "CALL": 1, "IMAD": 1, "STG": 1,
+                    "EXIT": 1}}
+    assert got["draw_words"]["instructions"] == 1
+    assert cs.kernel_name("_ZN12_GLOBAL__N_18draw_anyILb1EEEvPKxxiiPfS3_") \
+        == "draw_any<lanes-last>"
+    assert cs.launched_warps(2**20) == 2**20 // 4 // 32
+    assert cs.issue_bound_ms(100, 528, 132, 1000.0) == pytest.approx(1e-4)
+
+
+@pytest.mark.parametrize("name", ["sincosf of float32(2 pi) u2",
+                                  "2 samples a thread",
+                                  "256 threads a block",
+                                  "rows stored from registers, 16 bytes a "
+                                  "thread",
+                                  "at most 32 registers (16 blocks an SM)"])
+def test_study_variants_apply_to_the_source(name):
+    """Each variant of the study changes the source it is built from, so
+    a source edit that a variant no longer matches fails here."""
+    from gpu_se_tpu_torch.results import counter_draw_study as cs
+
+    assert cs.variant_source("as built") == cs.SOURCE.read_text()
+    assert cs.variant_source(name) != cs.SOURCE.read_text()

@@ -901,22 +901,22 @@ def test_two_ranks_on_one_card_over_gloo(cuda, route):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("start,count,nx,lanes_last", [
-    (0, 2**20, 5, False), (2**20, 2**20, 5, False), (0, 2**21, 5, True),
-    (0, 2**18 * 11, 5, True), (2**18 * 11, 2**18 * 11, 5, True),
-    (123457, 999983, 5, False), (2**32 - 1001, 4097, 3, True)])
+@pytest.mark.parametrize("start,count,nx,lanes_last", rig.COUNTER_CASES)
 def test_counter_draw_equals_plain_on_card(cuda, start, count, nx,
                                           lanes_last):
-    """The Philox words and the uniforms bit-equal to the plain version,
-    the normals within ``NORMAL_ATOL``; one launch, none for an empty
-    draw; slices concatenate to the whole draw."""
+    """The production kernel's uniforms bit-equal to the plain version
+    and its normals within ``NORMAL_ATOL``, the verification hook's
+    Philox words bit-equal; one counted launch (the hook's is not
+    counted), none for an empty draw; slices concatenate to the whole
+    draw. ``rig.COUNTER_CASES`` covers every compile-time nx and two
+    run-time ones."""
     key = torch.tensor([0x1234ABCD, 0x0F0E0D0C], device=cuda)
     before = cd.counter_draw.launches
     empty = cd.counter_draw(key, start, 0, nx, lanes_last)
     assert empty[1].shape == (0,)
     assert cd.counter_draw.launches == before
-    eps, u, w = cd.counter_draw(key, start, count, nx, lanes_last,
-                                words=True)
+    eps, u = cd.counter_draw(key, start, count, nx, lanes_last)
+    w = cd.counter_words(key, start, count, nx)
     torch.cuda.synchronize()
     assert cd.counter_draw.launches == before + 1
     p_eps, p_u, p_w = cd.counter_draw_plain(key, start, count, nx,
@@ -929,6 +929,31 @@ def test_counter_draw_equals_plain_on_card(cuda, start, count, nx,
             cd.counter_draw(key, start + cut, count - cut, nx, lanes_last))
     assert torch.equal(torch.cat([a[0], b[0]], dim=int(lanes_last)), eps)
     assert torch.equal(torch.cat([a[1], b[1]]), u)
+
+
+@pytest.mark.gpu
+def test_counter_draw_instantiations_on_card(cuda):
+    """The library has an instantiation for every compile-time nx of the
+    wrapper and refuses one asked for another nx; the verification hook
+    launches no counted draw."""
+    lib = _build.load_library()
+    key = torch.tensor([1, 2], device=cuda)
+    eps = torch.empty((8, 5), device=cuda)
+    u = torch.empty((8,), device=cuda)
+    stream = _build.stream(cuda)
+    assert lib.gst_counter_draw(key.data_ptr(), 0, 8, 5, 4, 0,
+                                eps.data_ptr(), u.data_ptr(), stream) != 0
+    for nx in range(1, cd.MAX_FIXED_NX + 1):
+        assert lib.gst_counter_draw(key.data_ptr(), 0, 8, nx, nx, 0,
+                                    eps.data_ptr(), u.data_ptr(),
+                                    stream) == 0
+    assert lib.gst_counter_draw(key.data_ptr(), 0, 8, 6, 6, 0,
+                                eps.data_ptr(), u.data_ptr(), stream) != 0
+    before = cd.counter_draw.launches
+    w = cd.counter_words(key, 0, 8, 5)
+    assert w.shape == (8, 8) and cd.counter_draw.launches == before
+    assert torch.equal(w.to(torch.int64) & cd.MASK32,
+                       cd.words_plain(key, 0, 8, 5))
 
 
 @pytest.mark.gpu

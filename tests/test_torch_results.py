@@ -324,6 +324,31 @@ def test_pacf_series_small():
     assert out["chain"].startswith("eager") and "device_series_ms" not in out
 
 
+def test_pacf_series_reps_start_near_the_same_particles(monkeypatch):
+    """Every rep's input lies within 1e-4 of the warm-up's, as the
+    reference's ``tiled0 + 1e-9 * seed`` with ``seed = |N(0, 1)| 1e4``;
+    the host split and the clock fields are recorded."""
+    ps = port("pacf_series")
+    inputs, chain = [], ps.chain_steps
+
+    def spy(x, *args):
+        inputs.append(x.clone())
+        return chain(x, *args)
+
+    monkeypatch.setattr(ps, "chain_steps", spy)
+    out = ps.pacf_series(n=256, k=1, reps=12, gpu=False)
+    x_init, reps = inputs[0], inputs[1:]
+    assert len(reps) == 12
+    for x in reps:
+        assert float((x - x_init).abs().max()) <= 1e-4
+    assert any(not torch.equal(x, x_init) for x in reps)
+    assert len(out["launch_series_ms"]) == len(out["sync_series_ms"]) == 12
+    assert out["sm_clock_mhz"] == {"before": None, "after": None}
+    rng = np.random.default_rng(0)
+    offsets = [ps.rep_offset(rng) for _ in range(1000)]
+    assert 0 <= min(offsets) and max(offsets) <= 1e-4
+
+
 def test_pacf_chain_body_equals_k_eager_steps():
     """The body a graph captures on the card is K tiled steps, equal to
     K calls of ``particle_tiled.step`` from the same generator state."""
