@@ -153,7 +153,35 @@ Phases, each of which raises on failure:
     state printed, and ``make_shard_map_tiled_step`` (``ragged``), finite,
     each launching its kernels on both ranks and timed over 5 chained
     steps by ``results/sharded_steps.step_rows``;
-15. (i) the experiments layer (``gpu_se_tpu_torch/results``), through the
+15. (j) the sharded closed-loop control step
+    (``parallel/control.make_sharded_control_step``: the sharded filter
+    step, ``parallel/sharded.point_estimate`` of the whole population,
+    the MPC's device solve on rank 0, broadcast) on (b)'s canonical MPC
+    (P = 2999, M = 1999, its float64 setup built once; the W = 2 ranks
+    get its CPU copy and move it to the card with ``MPC.to``): at W = 1
+    in a one-rank NCCL
+    group, 5 control events of the flat step at 2^20 (``bench.py``'s
+    rig) through ``a2a`` (compact + expand + counter_draw) and
+    ``kernel`` (ends_merge_round + counter_draw), and 5 at 2^21, each
+    event's ``u`` equal bit for bit to a single-rank
+    ``make_device_step`` fed the same estimate and warm start, each
+    kernel launched once an event; one event of the GSUKF (``kernel``)
+    at 2^18 and 2^19 and of the tiled step (``ragged``) at 2^20; then
+    W = 2, two processes on this card over gloo, 2^20 a
+    rank: both routes' estimates and ``u`` equal W = 1's at 2^21 bit for
+    bit on both ranks, each kernel launched once an event a rank
+    (``ends_merge_round`` once a block not skipped), the port's rank-0
+    solve and broadcast timed against a solve replicated on both ranks
+    (the reference's) in turns, one
+    event of the GSUKF (2^18 a rank, equal to W = 1's at 2^19) and of
+    the tiled step; ms per control event by CUDA events and the QP's
+    statuses printed; ``entry.dryrun_multichip(2)`` on this card (every
+    leg of the reference's dry run, finite); and the float64 serial
+    engine (``native/serial.py``, built by g++ from the checkout; a
+    failed build raises) against the card's flat predict and update at
+    ``rig.SERIAL_N`` = 2^16 particles fed the same float32 noise, within
+    ``rig.SERIAL_RTOL`` and ``rig.SERIAL_ATOL``;
+16. (i) the experiments layer (``gpu_se_tpu_torch/results``), through the
     entry points the campaign calls, with the jar under a temporary
     directory: the PF run sequences (predict, update, resample, step) on
     the card at 2^1, 2^12, 2^20 and 2^23.5 (the top of the reference's
@@ -164,7 +192,8 @@ Phases, each of which raises on failure:
     resamples at n >= 2^12 and never otherwise; ``breakdown_pf`` at 2^18;
     ``pacf_series`` (8 steps, 20 reps, one CUDA graph replay a rep:
     ``compact`` and ``expand`` 8 times at the warm-up and 8 at the
-    capture, 21 replays counted) with its host-ms and device-ms series,
+    capture, 21 replays counted) with its host-ms and device-ms series
+    and the graph's own device ms (events captured in the graph),
     beside the chunked step sequence's max |pacf|; ``pf_power.step_energy`` over 2 s at 2^20 (the card's J
     finite, positive and under 105% of the power limit over the window);
     ``get_sim_summary`` and ``get_sim_summary_device`` of the PF at 2^20
@@ -186,10 +215,10 @@ device time under ``torch.profiler``;
 a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
 
-Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
-``nvidia-smi`` line, the eight metric JSON lines (tiled PF, GSUKF, MPC,
-closed loop, scenario MPC, instrumentation, multi-device, experiments)
-and, last, ``{"ok": true,
+Output: one line per phase, the total time, then a ``{"kernels": [...]}``
+JSON line, the ``nvidia-smi`` line, the nine metric JSON lines (tiled PF,
+GSUKF, MPC, closed loop, scenario MPC, instrumentation, multi-device,
+sharded control, experiments) and, last, ``{"ok": true,
 "device": {...}}``. Run from the
 repository root::
 
@@ -247,6 +276,11 @@ from gpu_se_tpu_torch.parallel import make_consensus_scenario_step  # noqa: E402
 from gpu_se_tpu_torch.parallel import make_scenario_solver  # noqa: E402
 from gpu_se_tpu_torch import parallel as par  # noqa: E402
 from gpu_se_tpu_torch.parallel import sharded  # noqa: E402
+from gpu_se_tpu_torch.parallel.control import (  # noqa: E402
+    make_sharded_control_step,
+)
+from gpu_se_tpu_torch import entry  # noqa: E402
+from gpu_se_tpu_torch.native import serial as native_serial  # noqa: E402
 from gpu_se_tpu_torch.parallel.launch import free_port, run_group  # noqa: E402
 from gpu_se_tpu_torch.utils import PowerMeasurement, RunSequences  # noqa: E402
 from gpu_se_tpu_torch.utils import StateCheckpointer, max_abs_pacf  # noqa: E402
@@ -285,7 +319,7 @@ ROUTE_STEPS = 10
 GSUKF_STEPS = 30
 REPS = 30
 PROFILE_TRIES = 10
-CALL_MARK = "device_ms call"   # the host range of one timed call
+CALL_MARK = "device_ms call"   # the range of one timed call
 COMPACT_REPEATS = 200
 N_MANY_TILES = 2**24     # more tiles of `compact` than blocks the card holds
 WATCHDOG_S = 300
@@ -460,11 +494,10 @@ def device_ms(fn, reps: int = REPS, setup=None) -> float:
     the device ops the call launched, by ``torch.profiler``, averaged
     over the whole calls among ``reps`` synchronised ones (``call_busy``).
     The profiler now and then drops a device event (on one card, one in
-    every session of a host-syncing plain version), and a device op can
-    land in a neighbouring call's host range: the calls that show the
-    number of device ops most calls show are whole, the others are left
-    out, and a session with fewer than half its calls whole is profiled
-    again, ``PROFILE_TRIES`` times at most. Unlike :func:`time_ms` it
+    every session of a host-syncing plain version): the calls that show
+    the number of device ops most calls show are whole, the others are
+    left out, and a session with fewer than half its calls whole is
+    profiled again, ``PROFILE_TRIES`` times at most. Unlike :func:`time_ms` it
     leaves out the host's launch latency, which on this path is of the
     kernels' own size. With ``setup``, each call is ``fn(*setup())`` on
     arguments all made before the first call, so that their making is
@@ -513,10 +546,15 @@ def union_ms(spans) -> float:
 def call_busy(events) -> list[tuple[int, float]]:
     """``(device ops, busy ms)`` of each call that ``device_ms`` marked:
     the device ops whose start lies in the call's ``CALL_MARK`` range on
-    the host, which ends after the call's synchronise."""
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    the device, which the profiler draws from the first to the last op
+    launched under the mark. The mark's range on the host is not used:
+    the profiler maps device times onto the host's clock, and on the H100
+    the two drift apart by milliseconds within one session
+    (``python -m gpu_se_tpu_torch.results.profiler_clock``), so that a
+    call's ops fall into another call's host range or into none."""
+    cuda = torch.autograd.DeviceType.CUDA
     marks = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == CALL_MARK and e.device_type == cpu)
+                   if e.name == CALL_MARK and e.device_type == cuda)
     dev = [(e.time_range.start, e.time_range.end) for e in events
            if e.device_type == cuda and e.name != CALL_MARK]
     calls = []
@@ -2720,6 +2758,342 @@ def multi_w2(dev, seed: int, card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# (j) the sharded closed-loop control step
+# ----------------------------------------------------------------------
+CTRL_EVENTS = 5           # control events a run
+CTRL_DT = 0.1             # the filter's time step, dt_control
+# the flat control step's routes at full width and the kernels each
+# launches once a step a rank (ends_merge_round: once a block not skipped)
+CTRL_ROUTES = {"a2a": ("compact", "expand", "counter_draw"),
+               "kernel": ("ends_merge_round", "counter_draw")}
+# the other filters: (filter, route, global count at W = 1, kernels)
+CTRL_OTHERS = {"gsukf": ("gsukf", "kernel", N_BANK,
+                         ("ends_merge_round", "counter_draw")),
+               "tiled": ("tiled", "ragged", N, ("compact", "expand"))}
+CTRL_TIMEOUT_S = 300
+
+
+def ctrl_args(mpc, dev):
+    """``(um1, z, bias, warm_v, warm_y)`` of a first control event: the
+    bench rig's input and steady-state outputs, no bias, a cold start."""
+    _, _, u, z, _ = shard_step_args(dev)
+    n_d, m = (mpc.M + 1) * mpc.Ni, mpc.qp.m
+    return (u, z, torch.zeros(mpc.No, device=dev),
+            torch.zeros(n_d, device=dev), torch.zeros(m, device=dev))
+
+
+def ctrl_state(kind: str, n: int, mesh, seed: int):
+    """This rank's slice of a global filter state of ``n`` particles
+    (Gaussians) on the bench rig, drawn from the seed on the mesh's
+    device: the same global state at every width."""
+    x0, state_pdf, _ = bench_rig(mesh.device)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed + 23)
+    if kind == "gsukf":
+        return par.shard_gsukf_state(gsf.init(gen, n, x0, state_pdf), mesh)
+    if kind == "tiled":
+        return par.shard_tiled_pf_state(pft.init(gen, n, x0), mesh)
+    return par.shard_pf_state(pf.init(gen, n, x0), mesh)
+
+
+def ctrl_events(mesh, step, state, mpc, events: int = CTRL_EVENTS):
+    """``events`` chained control events of ``step`` from ``state``: each
+    feeds the last control back as ``um1`` and the last solution as the
+    warm start. Returns one record an event: the global estimate, the
+    ``um1`` it was given, ``u``, the status, the iterations and its ms by
+    CUDA events (the filter step, the estimate and the solve)."""
+    dev = mesh.device
+    _, state_pdf, meas_pdf = bench_rig(dev)
+    um1, z, bias, warm_v, warm_y = ctrl_args(mpc, dev)
+    recs = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(events):
+        start.record()
+        state, u, _, sol = step(state, um1, z, bias, warm_v, warm_y,
+                                state_pdf, meas_pdf)
+        end.record()
+        torch.cuda.synchronize(dev)
+        recs.append(dict(
+            est=sharded.point_estimate(state, mesh).cpu().numpy(),
+            um1=um1.cpu().numpy(), u=u.cpu().numpy(),
+            status=int(sol.status), iterations=int(sol.iterations),
+            ms=start.elapsed_time(end)))
+        # the solution's tensors are the QP graph's own, rewritten by the
+        # next solve
+        um1, warm_v, warm_y = u.clone(), sol.x.clone(), sol.y.clone()
+    return recs
+
+
+def replicated_control_step(mesh, mpc, lin, route: str):
+    """The other way to end the control step, timed beside the port's
+    (rank 0's solve, broadcast): the same sharded filter step and global
+    estimate, then the QP solved on every rank, as the reference solves
+    it on every device. Returns a step of
+    :func:`make_sharded_control_step`'s signature."""
+    dev = mesh.device
+    fstep = par.make_shard_map_step(mesh, bio.homeostatic_des,
+                                    bio.static_outputs, resample_impl=route)
+    consts, solve = make_device_step(mpc)
+    states, inputs = list(lin.states), list(lin.inputs)
+    x_bar = torch.tensor(lin.x_bar, dtype=torch.float32, device=dev)
+    u_bar = torch.tensor(lin.u_bar, dtype=torch.float32, device=dev)
+    dt = torch.tensor(CTRL_DT, device=dev)
+
+    def step(state, um1, z, bias, warm_v, warm_y, state_pdf, meas_pdf):
+        state = fstep(state, um1, z, dt, state_pdf, meas_pdf)
+        x_hat = sharded.point_estimate(state, mesh)
+        ctrl, y_pred, sol = solve(consts, x_hat[states] - x_bar,
+                                  um1[inputs] - u_bar, bias, warm_v, warm_y)
+        return state, ctrl + u_bar, y_pred, sol
+
+    return step
+
+
+def ctrl_rank(seed: int, mpc_cpu, lin):
+    """One rank of (j)'s W = 2 run (a spawned process of a gloo group,
+    both ranks on card 0): the flat control step at N_W2 particles
+    through each of ``CTRL_ROUTES``, its records and launches; the
+    port's rank-0 solve and the replicated solve timed in turns; one
+    event of each of ``CTRL_OTHERS``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = par.make_mesh()
+    torch.cuda.set_device(mesh.device)
+    mpc = mpc_cpu.to(mesh.device)
+    f, g = bio.homeostatic_des, bio.static_outputs
+    out = {}
+    for route in CTRL_ROUTES:
+        step = make_sharded_control_step(mesh, mpc, lin, f, g, dt=CTRL_DT,
+                                         resample_impl=route)
+        state = ctrl_state("pf", N_W2, mesh, seed)
+        zero_counts()
+        recs = ctrl_events(mesh, step, state, mpc)
+        out[route] = (recs, read_counts())
+    solves = {"rank 0": make_sharded_control_step(
+        mesh, mpc, lin, f, g, dt=CTRL_DT, resample_impl="a2a"),
+              "replicated": replicated_control_step(mesh, mpc, lin, "a2a")}
+    out["solve_ms"] = {k: [] for k in solves}
+    for name in ("replicated", "rank 0", "replicated", "rank 0"):
+        dist.barrier()
+        recs = ctrl_events(mesh, solves[name],
+                           ctrl_state("pf", N_W2, mesh, seed), mpc)
+        out["solve_ms"][name] += [r["ms"] for r in recs]
+        out.setdefault("solve_u", {})[name] = [r["u"] for r in recs]
+    for name, (kind, route, n, _) in CTRL_OTHERS.items():
+        step = make_sharded_control_step(mesh, mpc, lin, f, g, dt=CTRL_DT,
+                                         filter=kind, resample_impl=route)
+        zero_counts()
+        recs = ctrl_events(mesh, step, ctrl_state(kind, 2 * n, mesh, seed),
+                           mpc, events=1)
+        out[name] = (recs, read_counts())
+    return mesh.rank, out
+
+
+def ctrl_check_solves(path: str, recs, mpc, lin, dev) -> None:
+    """Fail unless each event's ``u`` equals, bit for bit, one solve of
+    ``make_device_step`` on this process fed the event's estimate and
+    ``um1``, warm-started by the previous such solve, as the event was."""
+    consts, solve = make_device_step(mpc)
+    states, inputs = list(lin.states), list(lin.inputs)
+    x_bar = torch.tensor(lin.x_bar, dtype=torch.float32, device=dev)
+    u_bar = torch.tensor(lin.u_bar, dtype=torch.float32, device=dev)
+    _, _, bias, warm_v, warm_y = ctrl_args(mpc, dev)
+    for k, rec in enumerate(recs):
+        est = torch.from_numpy(rec["est"]).to(dev)
+        um1 = torch.from_numpy(rec["um1"]).to(dev)
+        ctrl, _, sol = solve(consts, est[states] - x_bar,
+                             um1[inputs] - u_bar, bias, warm_v, warm_y)
+        want = (ctrl + u_bar).cpu().numpy()
+        if not np.array_equal(want.view(np.int32), rec["u"].view(np.int32)):
+            raise AssertionError(f"(j) {path}, event {k}: u {rec['u']} != "
+                                 f"a single-rank solve's {want}")
+        warm_v, warm_y = sol.x.clone(), sol.y.clone()
+
+
+def ctrl_same(path: str, got, want) -> None:
+    """Fail unless the records' estimates and controls are bit-equal."""
+    for k, (a, b) in enumerate(zip(got, want)):
+        for key in ("est", "u"):
+            if not np.array_equal(a[key].view(np.int32),
+                                  b[key].view(np.int32)):
+                raise AssertionError(f"(j) {path}, event {k}: {key} "
+                                     f"{a[key]} != {b[key]}")
+
+
+def ctrl_counts(path: str, counts, kernels, events: int) -> None:
+    """Fail unless each of ``kernels`` launched once an event on this
+    rank (``ends_merge_round`` once a block not skipped: 1 or 2 at W = 2)
+    and no other kernel launched."""
+    for k, c in counts.items():
+        lo = events if k in kernels else 0
+        hi = lo * (2 if k == "ends_merge_round" else 1)
+        if not lo <= c <= hi:
+            raise AssertionError(f"(j) {path}: launches {counts}")
+
+
+def ctrl_line(recs) -> str:
+    ms = [r["ms"] for r in recs]
+    median = (f" (median of events 2-{len(ms)} {np.median(ms[1:]):.3f})"
+              if len(ms) > 1 else "")
+    return (f"{' '.join(f'{t:.3f}' for t in ms)} ms per control event"
+            f"{median}; QP statuses {[r['status'] for r in recs]}, "
+            f"iterations {[r['iterations'] for r in recs]}")
+
+
+def phase_control(dev, seed: int, card: str, s, mpc_cpu) -> dict:
+    """(j) The sharded closed-loop control step on the canonical MPC
+    (P = 2999, M = 1999, built once by ``control_setup``): at W = 1 in a
+    one-rank NCCL group, the flat step at 2^20 through ``a2a`` and
+    ``kernel``, 5 events each, and at 2^21 (W = 2's global state); the
+    GSUKF at 2^18 and 2^19 and the tiled step at 2^20, one event each;
+    then W = 2 over gloo on this card; ``dryrun_multichip(2)``; the
+    serial engine as the oracle of the flat predict and update."""
+    t_phase = time.perf_counter()
+    mpc, lin = s.K, s.lin_model
+    f, g = bio.homeostatic_des, bio.static_outputs
+    metric = {"metric": "sharded_control_ms_per_event", "unit": "ms/event",
+              "card": card}
+    par.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        mesh = par.make_mesh()
+        w1 = {}
+        for n, routes in ((N, CTRL_ROUTES), (N_W2, ("a2a",))):
+            for route in routes:
+                step = make_sharded_control_step(
+                    mesh, mpc, lin, f, g, dt=CTRL_DT, resample_impl=route)
+                zero_counts()
+                recs = ctrl_events(mesh, step, ctrl_state("pf", n, mesh, seed),
+                                   mpc)
+                expect_counts(f"(j) W=1 flat {route} at n={n}", read_counts(),
+                              {k: CTRL_EVENTS for k in CTRL_ROUTES[route]})
+                ctrl_check_solves(f"W=1 flat {route} at n={n}", recs, mpc,
+                                  lin, dev)
+                w1[f"flat {route} {n}"] = recs
+                log(f"sharded control (j), W=1 NCCL, flat {route} at n={n}: "
+                    f"{ctrl_line(recs)}; each u == a single-rank "
+                    f"make_device_step fed the same estimate ({card})")
+        for name, (kind, route, n, kernels) in CTRL_OTHERS.items():
+            # the GSUKF also at W = 2's global count: W = 2 must equal it
+            for n_glob in (n, 2 * n) if kind == "gsukf" else (n,):
+                step = make_sharded_control_step(
+                    mesh, mpc, lin, f, g, dt=CTRL_DT, filter=kind,
+                    resample_impl=route)
+                zero_counts()
+                recs = ctrl_events(mesh, step,
+                                   ctrl_state(kind, n_glob, mesh, seed), mpc,
+                                   events=1)
+                expect_counts(f"(j) W=1 {name} at n={n_glob}", read_counts(),
+                              {k: 1 for k in kernels})
+                if not np.isfinite(recs[0]["u"]).all():
+                    raise AssertionError(f"(j) W=1 {name}: non-finite u")
+                w1[f"{name} {n_glob}"] = recs
+                log(f"sharded control (j), W=1 NCCL, {name} ({route}) at "
+                    f"n={n_glob}: {ctrl_line(recs)} ({card})")
+    finally:
+        dist.destroy_process_group()
+    metric["w1_ms"] = {k: [r["ms"] for r in v] for k, v in w1.items()}
+    metric["w1_status"] = {k: [r["status"] for r in v]
+                           for k, v in w1.items()}
+
+    t0 = time.perf_counter()
+    ranks = run_group(ctrl_rank, 2, seed, mpc_cpu, lin,
+                      timeout_s=CTRL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    outs = [out for _, out in sorted(ranks, key=lambda r: r[0])]
+    want = w1[f"flat a2a {N_W2}"]
+    metric["w2_ms"] = {}
+    for route, kernels in CTRL_ROUTES.items():
+        for rank, out in enumerate(outs):
+            recs, counts = out[route]
+            ctrl_same(f"W=2 flat {route}, rank {rank} vs W=1", recs, want)
+            ctrl_counts(f"W=2 flat {route}, rank {rank}", counts, kernels,
+                        CTRL_EVENTS)
+        metric["w2_ms"][f"flat {route}"] = [[r["ms"] for r in out[route][0]]
+                                            for out in outs]
+        log(f"sharded control (j), W=2 (two processes on card 0, gloo), "
+            f"flat {route} at n={N_W2} ({N} a rank): rank 0 "
+            f"{ctrl_line(outs[0][route][0])}; rank 1 "
+            f"{ctrl_line(outs[1][route][0])}; estimates and u == W=1's bit "
+            f"for bit on both ranks; launches "
+            f"{[out[route][1] for out in outs]} ({card})")
+    for name in ("replicated", "rank 0"):
+        us = [out["solve_u"][name] for out in outs]
+        for a, b in zip(*us):
+            if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                raise AssertionError(f"(j) W=2 {name} solve: u differs "
+                                     f"between the ranks")
+    metric["w2_solve_ms"] = {k: [out["solve_ms"][k] for out in outs]
+                             for k in outs[0]["solve_ms"]}
+    log("sharded control (j), W=2, the port's solve on rank 0 and "
+        "broadcast against the solve replicated on both ranks (a2a, in "
+        "turns replicated, rank 0, replicated, rank 0, 5 events each), "
+        "median ms per event rank 0 / 1: " + "; ".join(
+            f"{k} {np.median(v[0]):.3f} / {np.median(v[1]):.3f}"
+            for k, v in metric["w2_solve_ms"].items()) + f" ({card})")
+    for name, (kind, route, n, kernels) in CTRL_OTHERS.items():
+        recs = [out[name][0][0] for out in outs]
+        if not np.array_equal(recs[0]["u"].view(np.int32),
+                              recs[1]["u"].view(np.int32)):
+            raise AssertionError(f"(j) W=2 {name}: u differs between ranks")
+        if kind == "gsukf":
+            ctrl_same(f"W=2 {name} vs W=1", recs, w1[f"{name} {2 * n}"])
+        elif not np.isfinite(recs[0]["u"]).all():
+            raise AssertionError(f"(j) W=2 {name}: non-finite u")
+        for rank, out in enumerate(outs):
+            ctrl_counts(f"W=2 {name}, rank {rank}", out[name][1], kernels, 1)
+        metric["w2_ms"][name] = [out[name][0][0]["ms"] for out in outs]
+        log(f"sharded control (j), W=2, {name} ({route}) at n={2 * n}: "
+            f"{metric['w2_ms'][name][0]:.3f} / {metric['w2_ms'][name][1]:.3f}"
+            f" ms (rank 0 / 1), QP status {recs[0]['status']}; u bit-equal "
+            f"on both ranks"
+            + (", estimate and u == W=1's" if kind == "gsukf" else "")
+            + f"; launches {[out[name][1] for out in outs]} ({card})")
+    log(f"sharded control (j), W=2: {wall:.1f} s with the start-up ({card})")
+
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(2)
+    metric["dryrun_s"] = time.perf_counter() - t0
+    metric["serial_max_err"] = phase_serial_oracle(dev, card)
+    metric["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded control (j): phase {metric['phase_s']:.1f} s ({card})")
+    return metric
+
+
+def phase_serial_oracle(dev, card: str) -> dict:
+    """The card's flat ``predict_from_noise`` and ``update`` at
+    ``rig.SERIAL_N`` particles, fed float32 noise drawn on the host,
+    against the float64 serial engine built from the checkout (which
+    raises if it cannot build), at ``tests/test_torch_native_serial.py``'s
+    tolerance: the particles, and the weights normalized to mean 1."""
+    particles, noise = rig.serial_case()
+    n = len(particles)
+    eng = native_serial.SerialParticleFilter(particles, *rig.SERIAL_MEAS)
+    eng.predict(rig.SERIAL_U, rig.SERIAL_DT, noise)
+    eng.update(rig.SERIAL_Z)
+    meas = GaussianSum.create(*rig.SERIAL_MEAS, device=dev)
+    u = torch.tensor(rig.SERIAL_U, dtype=torch.float32, device=dev)
+    z = torch.tensor(rig.SERIAL_Z, dtype=torch.float32, device=dev)
+    x = pf.predict_from_noise(torch.from_numpy(particles).to(dev), u,
+                              torch.tensor(rig.SERIAL_DT, device=dev),
+                              bio.homeostatic_des,
+                              torch.from_numpy(noise).to(dev))
+    w = pf.update(pf.PFState(x, torch.full((n,), 1.0 / n, device=dev), None),
+                  u, z, bio.static_outputs, meas).weights
+    x, w = x.cpu().numpy(), w.cpu().numpy()
+    w, w_eng = w / w.mean(), eng.weights / eng.weights.mean()
+    np.testing.assert_allclose(x, eng.particles, rtol=rig.SERIAL_RTOL,
+                               atol=rig.SERIAL_ATOL)
+    np.testing.assert_allclose(w, w_eng, rtol=rig.SERIAL_RTOL,
+                               atol=rig.SERIAL_ATOL)
+    err = {"particles": float(np.abs(x - eng.particles).max()),
+           "weights": float(np.abs(w - w_eng).max())}
+    log(f"sharded control (j), the serial engine (float64, g++ from "
+        f"{os.path.relpath(native_serial.library_path())}) against the "
+        f"card's flat predict and update at n={n}: max |diff| particles "
+        f"{err['particles']:.3e}, weights (mean 1) {err['weights']:.3e}, "
+        f"within rtol {rig.SERIAL_RTOL}, atol {rig.SERIAL_ATOL} ({card})")
+    return err
+
+
+# ----------------------------------------------------------------------
 # (i) the experiments layer
 # ----------------------------------------------------------------------
 def exp_counts(path: str, n: int, calls: int, resamples: bool) -> None:
@@ -2830,18 +3204,20 @@ def experiments(dev, card: str) -> dict:
     if series["replays"] != EXP_PACF_REPS + 1:
         raise AssertionError(f"(i) pacf series: {series['replays']} "
                              f"replays, not {EXP_PACF_REPS + 1}")
-    if not (np.isfinite(series["device_series_ms"]).all()
-            and min(series["device_series_ms"]) > 0):
-        raise AssertionError(f"(i) pacf series: device ms "
-                             f"{series['device_series_ms']}")
+    for key in ("device_series_ms", "graph_series_ms"):
+        if not (np.isfinite(series[key]).all() and min(series[key]) > 0):
+            raise AssertionError(f"(i) pacf series: {key} {series[key]}")
     metric["pacf"] = {"chunked_step_2^20": max_abs_pacf(chunked, 10),
                       "series_2^20": series["max_abs_pacf"],
                       "series_median_rep_ms": series["median_rep_ms"],
                       "device_series_2^20": series["device_max_abs_pacf"],
                       "device_median_rep_ms":
                           series["device_median_rep_ms"],
+                      "graph_series_2^20": series["graph_max_abs_pacf"],
+                      "graph_median_rep_ms": series["graph_median_rep_ms"],
                       "host_series_ms": series["series_ms"],
-                      "device_series_ms": series["device_series_ms"]}
+                      "device_series_ms": series["device_series_ms"],
+                      "graph_series_ms": series["graph_series_ms"]}
     log(f"experiments (i), breakdown at n={EXP_BREAKDOWN_N}, median ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in metric["breakdown_ms"].items())
         + f"; max |pacf|: chunked step sequence at 2^20 "
@@ -2849,13 +3225,17 @@ def experiments(dev, card: str) -> dict:
         f"{EXP_PACF_K}, {EXP_PACF_REPS} reps, one CUDA graph replay a rep) "
         f"host ms "
         f"{series['max_abs_pacf']:.3f}, device ms "
-        f"{series['device_max_abs_pacf']:.3f} (gate 0.2; printed, not "
+        f"{series['device_max_abs_pacf']:.3f}, graph alone "
+        f"{series['graph_max_abs_pacf']:.3f} (gate 0.2; printed, not "
         f"failed on), median {series['median_rep_ms']:.3f} ms host, "
-        f"{series['device_median_rep_ms']:.3f} ms device a rep ({card})")
+        f"{series['device_median_rep_ms']:.3f} ms device, "
+        f"{series['graph_median_rep_ms']:.3f} ms graph a rep ({card})")
     log("experiments (i), pacf series host ms: "
         + " ".join(f"{t:.3f}" for t in series["series_ms"]))
     log("experiments (i), pacf series device ms: "
         + " ".join(f"{t:.3f}" for t in series["device_series_ms"]))
+    log("experiments (i), pacf series graph ms: "
+        + " ".join(f"{t:.3f}" for t in series["graph_series_ms"]))
 
     zero_counts()
     _, ((steps, (e_cpu, e_card)),) = exp_power.step_energy(
@@ -2916,6 +3296,7 @@ def experiments(dev, card: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2960,6 +3341,7 @@ def main() -> int:
     scenario_metric, scen = phase_scenario(dev, card)
     instr_metric = phase_instrumentation(dev, args.seed, card)
     multi_metric = phase_multi_device(dev, args.seed, card, scen)
+    control_metric = phase_control(dev, args.seed, card, sim_b, K_cpu)
     exp_metric = phase_experiments(dev, card)
     times.update(merge_times, counter_draw=draw_times)
     bounds.update(merge_bounds, counter_draw=draw_bound)
@@ -2976,6 +3358,8 @@ def main() -> int:
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": library.get(name),
     } for name, (source, replaces, _) in KERNELS.items()]
+    log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, "
+        f"the build included ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps(metric))
@@ -2985,6 +3369,7 @@ def main() -> int:
     print(json.dumps(scenario_metric))
     print(json.dumps(instr_metric))
     print(json.dumps(multi_metric))
+    print(json.dumps(control_metric))
     print(json.dumps(exp_metric))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

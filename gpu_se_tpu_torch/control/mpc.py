@@ -31,6 +31,7 @@ only the Ni input rows).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -235,6 +236,19 @@ class MPC:
         self._warm_v = torch.zeros(n_d, dtype=dt, device=dev)
         self._warm_y = torch.zeros(m, dtype=dt, device=dev)
         self.reset()
+
+    def to(self, device) -> "MPC":
+        """This MPC with its device constants on ``device``, reset: the
+        float64 host setup is shared, not rebuilt."""
+        new = copy.copy(self)
+        new.qp = self.qp.to(device)
+        dev = new.qp.device
+        new._consts = dict(qp=new.qp.consts,
+                           ctrl_map=self._consts["ctrl_map"].to(dev),
+                           theta0_w=self._consts["theta0_w"].to(dev))
+        new._warm_v, new._warm_y = self._warm_v.to(dev), self._warm_y.to(dev)
+        new.reset()
+        return new
 
     def reset(self):
         """Forget the steps taken: no prediction, no last solution, a

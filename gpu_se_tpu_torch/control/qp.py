@@ -30,6 +30,7 @@ around its solve), and the caller's setting is restored after.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
@@ -231,6 +232,16 @@ class DenseQP:
             aat=dev(aat),
             s_fac=dev(s_fac),
         )
+
+    def to(self, device) -> "DenseQP":
+        """This QP with its constants on ``device``: the host setup is
+        shared, not rebuilt."""
+        new = copy.copy(self)
+        new.device = torch.device(device)
+        new.consts = QPConstants(**{
+            f.name: getattr(self.consts, f.name).to(new.device)
+            for f in dataclasses.fields(QPConstants)})
+        return new
 
     def _t(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=self.settings.dtype, device=self.device)

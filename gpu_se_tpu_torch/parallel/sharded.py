@@ -18,6 +18,13 @@ Two paths, as in the reference:
   distributed systematic resample with ``O(n_local)`` memory a rank,
   each rank drawing only its own slice of the noise (below).
 
+:func:`point_estimate` and :func:`point_covariance` are the moments of
+the whole population from each rank's slice, the reference's
+``point_estimate`` and ``point_covariance`` on a sharded state: each
+rank sums its rows in the single-device reduction's blocks, the block
+sums are all-gathered, and every rank adds them in one order, so every
+rank holds the same bits.
+
 The resample starts from :func:`_segmented_ends`: the weight cumsum in
 fixed 128-slot segments, whose ``(n_global / 128,)`` totals are the only
 replicated array, so every float32 rounding is grouped alike at every
@@ -87,6 +94,7 @@ from gpu_se_tpu_torch.filters.particle_tiled import TiledPFState
 from gpu_se_tpu_torch.ops import resample_pallas4 as rp4
 from gpu_se_tpu_torch.ops import resample_pallas_block as rpb
 from gpu_se_tpu_torch.ops.counter_draw import key_from
+from gpu_se_tpu_torch.ops.reduce import _block, blocked_outer_sum, blocked_sum
 from gpu_se_tpu_torch.ops.resample_coarse import blocked_cummax, blocked_cumsum
 from gpu_se_tpu_torch.parallel import _comm
 from gpu_se_tpu_torch.parallel.mesh import Mesh, particle_sharding
@@ -95,6 +103,7 @@ from gpu_se_tpu_torch.pytree import tree_flatten, tree_unflatten
 _SEGMENT = 128           # slots of one segment of the distributed cumsum
 _IBIG = 2**30            # pad of exchanged ends and firsts: > any slot
 _KERNEL_BLOCK = 128      # block_slots of the kernel route's rounds
+_MOMENT_BLOCK = 4096     # ops/reduce's block: the moments' partial sums
 
 
 def _uniform(weights: torch.Tensor, n_global: int) -> torch.Tensor:
@@ -672,15 +681,134 @@ def make_shard_map_tiled_step(mesh: Mesh, f, g, exchange: str = "ragged"):
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}")
 
+    def from_noise(x, u, z, dt, measurement_pdf, noise, r):
+        xn, w = pft.predict_update_local(x, u, z, dt, f, g, measurement_pdf,
+                                         noise)
+        ends, prev = _segmented_ends(w, r, mesh)
+        return _a2a_compact_exchange_merge(xn, ends, prev, mesh, exchange)
+
     def step(state: TiledPFState, u, z, dt, state_pdf, measurement_pdf):
         x, gen = state.x, state.generator
         noise = state_pdf.draw_t(gen, x.shape[1])
         r = _comm.broadcast(mesh, torch.rand(
             (), generator=gen, dtype=x.dtype, device=x.device), 0)
-        xn, w = pft.predict_update_local(x, u, z, dt, f, g, measurement_pdf,
-                                         noise)
-        ends, prev = _segmented_ends(w, r, mesh)
         return TiledPFState(
-            _a2a_compact_exchange_merge(xn, ends, prev, mesh, exchange), gen)
+            from_noise(x, u, z, dt, measurement_pdf, noise, r), gen)
 
+    step.from_noise = from_noise
     return step
+
+
+# ----------------------------------------------------------------------
+# the moments of the whole population (the reference's point_estimate
+# and point_covariance on a sharded state: a psum under jit)
+# ----------------------------------------------------------------------
+def _block_sums(x: torch.Tensor, b: int) -> torch.Tensor:
+    """``(n / b, ...)``: the sums of ``x``'s consecutive ``b``-row
+    blocks, by a pairwise tree of elementwise adds (each block
+    zero-padded to a power of two): the same additions in the same order
+    however many blocks there are, on any device. A reduction kernel's
+    order on the card may change with the number of blocks, and with it
+    the bits at another width."""
+    n, rest = x.shape[0], tuple(x.shape[1:])
+    s = x.reshape(n // b, b, -1)
+    p = 1 << (b - 1).bit_length()
+    if p != b:
+        s = torch.cat([s, s.new_zeros((n // b, p - b, s.shape[2]))], dim=1)
+    while s.shape[1] > 1:
+        h = s.shape[1] // 2
+        s = s[:, :h] + s[:, h:]
+    return s.reshape((n // b,) + rest)
+
+
+def _global_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum over every rank's rows of ``x`` (this rank's ``(n_local,
+    ...)``) in the blocks that ``ops/reduce.blocked_sum`` takes at the
+    global row count. Where this rank's rows hold whole blocks, the
+    block sums are all-gathered and every rank sums the ``(n_global /
+    block, ...)`` partials in one order: the same bits on every rank and
+    at every width. Otherwise each rank's own blocked sum is gathered
+    and summed."""
+    n_local = x.shape[0]
+    b = _block(n_local * mesh.size, _MOMENT_BLOCK)
+    part = (_block_sums(x, b) if b > 1 and n_local % b == 0
+            else blocked_sum(x)[None])
+    # row-major at every width: the sum's kernel, and with it the order
+    # of its additions, follows the layout
+    return torch.sum(_gathered(mesh, part.contiguous()), dim=0)
+
+
+def _global_outer_sum(mesh: Mesh, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """``sum_i outer(a_i, b_i)`` over every rank's rows, by the blocks of
+    ``ops/reduce.blocked_outer_sum`` at the global row count, as
+    :func:`_global_sum` takes them."""
+    n_local = a.shape[0]
+    blk = _block(n_local * mesh.size, _MOMENT_BLOCK)
+    if blk > 1 and n_local % blk == 0:
+        part = torch.einsum("kbi,kbj->kij", a.reshape(-1, blk, a.shape[1]),
+                            b.reshape(-1, blk, b.shape[1]))
+    else:
+        part = blocked_outer_sum(a, b)[None]
+    return torch.sum(_gathered(mesh, part.contiguous()), dim=0)
+
+
+def _weighted_mean(mesh: Mesh, weights: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """``sum_i w_i x_i / sum_i w_i`` over every rank's rows, the weights
+    normalized by the global total first, as ``ops/reduce.weighted_mean``
+    does."""
+    w = weights / _global_sum(mesh, weights)
+    return _global_sum(mesh, w.reshape((-1,) + (1,) * (x.dim() - 1)) * x)
+
+
+def _tiled_mean(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The uniform-weight mean of every rank's ``(nx, n_local)``
+    particles in ``particle_tiled.point_estimate``'s 128-particle blocks:
+    where this rank holds whole blocks, the block sums are gathered and
+    summed in global order, bit-equal to the single-device estimate of
+    the whole population; otherwise each rank's zero-padded blocks are
+    summed and the ranks' sums added."""
+    nx, n_local = x.shape
+    pad = (-n_local) % pft.LANES
+    if pad:
+        x = torch.cat([x, x.new_zeros((nx, pad))], dim=1)
+    part = torch.sum(x.reshape(nx, -1, pft.LANES), dim=2)
+    if pad:
+        part = torch.sum(part, dim=1, keepdim=True)
+    blocks = _comm.all_gather(mesh, part).transpose(0, 1)
+    return torch.sum(blocks.reshape(nx, -1), dim=1) / (n_local * mesh.size)
+
+
+def point_estimate(state, mesh: Mesh) -> torch.Tensor:
+    """The point estimate of the whole population from this rank's slice
+    of a ``PFState`` or ``GSUKFState`` (the weighted mean, normalized) or
+    of a ``TiledPFState`` (the mean): the same bits on every rank, and at
+    every width whose shards hold whole blocks of the single-device
+    reduction (4096 rows; 128 particles for the tiled state)."""
+    if isinstance(state, TiledPFState):
+        return _tiled_mean(mesh, state.x)
+    if isinstance(state, GSUKFState):
+        return _weighted_mean(mesh, state.weights, state.means)
+    if isinstance(state, PFState):
+        return _weighted_mean(mesh, state.weights, state.particles)
+    raise TypeError(f"no point estimate of a {type(state).__name__}")
+
+
+def point_covariance(state, mesh: Mesh) -> torch.Tensor:
+    """The largest singular value of the whole population's covariance
+    from this rank's slice: the weighted particle covariance of a
+    ``PFState``, ``E[cov] + Var[means]`` of a ``GSUKFState``; the same
+    bits on every rank."""
+    if isinstance(state, GSUKFState):
+        x, weights = state.means, state.weights
+    elif isinstance(state, PFState):
+        x, weights = state.particles, state.weights
+    else:
+        raise TypeError(f"no point covariance of a {type(state).__name__}")
+    w = weights / _global_sum(mesh, weights)
+    dist = x - _weighted_mean(mesh, weights, x)
+    cov = _global_outer_sum(mesh, dist, dist * w[:, None])
+    if isinstance(state, GSUKFState):
+        cov = _global_sum(mesh, w[:, None, None] * state.covariances) + cov
+    return torch.linalg.svdvals(cov)[0]

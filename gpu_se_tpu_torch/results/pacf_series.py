@@ -23,7 +23,9 @@ rep filters the same cloud. Each rep records its host ms (the
 perf-counter around the copy, the chain and the synchronise), split into
 the part up to the synchronise (the copy and the replay's launch, or the
 eager chain's launches) and the synchronise, and its device ms (CUDA
-events on the stream, the card only); the card's SM clock is read by
+events on the stream around the copy, the launch and the chain, the card
+only); a replay also records the graph's steps alone (events captured in
+the graph, ``graph_series_ms``); the card's SM clock is read by
 ``nvidia-smi`` before and after the series.
 
 Usage: ``python -m gpu_se_tpu_torch.results.pacf_series`` (the card)
@@ -70,7 +72,10 @@ class GraphedChain:
     seeded ``seed`` and registered with the graph
     (``register_generator_state``), whose state each replay advances.
     ``replays`` counts replays; the kernels' launch counters tick once a
-    step at the warm-up and at the capture only."""
+    step at the warm-up and at the capture only. Two timing events are
+    captured around the steps, on the capture stream, as event nodes of
+    the graph: :meth:`graph_ms` reads the last replay's steps alone, with
+    neither the input's copy nor the host's launch."""
 
     def __init__(self, x, seed, k, u, z, dt, state_pdf, meas_pdf):
         dev = x.device
@@ -84,8 +89,13 @@ class GraphedChain:
         with torch.cuda.stream(side):
             chain_steps(self.static, self.generator, *body)
         torch.cuda.current_stream(dev).wait_stream(side)
+        self.begin, self.end = (
+            torch.cuda.Event(enable_timing=True, external=True)
+            for _ in range(2))
         with torch.cuda.graph(self.graph):
+            self.begin.record()
             self.out = chain_steps(self.static, self.generator, *body)
+            self.end.record()
         self.replays = 0
 
     def replay(self, x):
@@ -93,6 +103,11 @@ class GraphedChain:
         self.graph.replay()
         self.replays += 1
         return self.out
+
+    def graph_ms(self) -> float:
+        """The device ms of the last replay's steps; call after it has
+        finished."""
+        return self.begin.elapsed_time(self.end)
 
 
 def rep_offset(rng) -> float:
@@ -165,6 +180,7 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
 
     clock_before = sm_clock_mhz() if gpu else None
     series, device = np.empty(reps), np.full(reps, np.nan)
+    graph = np.full(reps, np.nan)
     launch, sync = np.empty(reps), np.empty(reps)
     for i in range(reps):
         x = x_init + rep_offset(rng)
@@ -185,6 +201,8 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
         launch[i], sync[i] = (t1 - t0) * 1e3, (t2 - t1) * 1e3
         if gpu:
             device[i] = start.elapsed_time(end)
+        if graphed:
+            graph[i] = runner.graph_ms()
     clock_after = sm_clock_mhz() if gpu else None
     pacf = float(max_abs_pacf(series / 1e3))
     med = float(np.median(series))
@@ -217,7 +235,11 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
             device_drift=(drift(device) if reps >= 2 * DRIFT_REPS
                           else None))
     if graphed:
-        out["replays"] = runner.replays
+        out.update(
+            replays=runner.replays,
+            graph_series_ms=graph.tolist(),
+            graph_median_rep_ms=float(np.median(graph)),
+            graph_max_abs_pacf=float(max_abs_pacf(graph / 1e3)))
     return out
 
 

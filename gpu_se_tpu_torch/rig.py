@@ -274,3 +274,31 @@ COUNTER_CASES = ((0, 2**20, 5, False), (2**20, 2**20, 5, False),
                  (99, 2053, 4, True), (2**33 + 5, 515, 5, True),
                  (11, 3, 5, False), (13, 1027, 6, False),
                  (13, 1027, 7, False), (2**32 - 5, 1027, 7, True))
+
+
+# ----------------------------------------------------------------------
+# the float64 serial engine as the oracle of the flat predict and update:
+# tests/test_torch_native_serial.py and chip_smoke.py phase (j)
+# ----------------------------------------------------------------------
+SERIAL_SEED = 1
+SERIAL_N = 2**16
+SERIAL_U = np.array([0.06, 0.2])
+SERIAL_Z = np.array([280.0, 1000.0])
+SERIAL_DT = 0.1
+# the measurement mixture of tests/test_native_serial.py
+SERIAL_MEAS = (np.array([[1e-1, 0.0], [0.0, -1e-1]]),
+               np.array([[[6e-2, 0], [0, 8e-2]], [[500.0, 100.0],
+                                                  [100.0, 700.0]]]),
+               np.array([0.85, 0.15]))
+# float32 against float64: the tolerance of tests/test_native_serial.py,
+# on the particles and on the weights normalized to mean 1
+SERIAL_RTOL, SERIAL_ATOL = 1e-4, 1e-5
+
+
+def serial_case(n: int = SERIAL_N, seed: int = SERIAL_SEED):
+    """``(particles (n, 5), noise (n, 5))`` float32: particles about the
+    steady state (scale 0.01) and the predict's noise (scale 1e-3), as
+    ``tests/test_native_serial.py`` draws them."""
+    rng = np.random.default_rng(seed)
+    particles = (X_SS + rng.normal(0, 0.01, (n, NX))).astype(np.float32)
+    return particles, rng.normal(0, 1e-3, (n, NX)).astype(np.float32)

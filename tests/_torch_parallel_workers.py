@@ -37,6 +37,7 @@ from gpu_se_tpu_torch.parallel import (
     shard_tiled_pf_state,
 )
 from gpu_se_tpu_torch.parallel import sharded as S
+from gpu_se_tpu_torch.parallel.control import make_sharded_control_step
 from gpu_se_tpu_torch.results.sharded_steps import counted_draws
 
 F, G = bio.homeostatic_des, bio.static_outputs
@@ -232,3 +233,50 @@ def multihost_step(d):
     est = pf.point_estimate(pf.PFState(full, S._gathered(mesh, out.weights),
                                        None))
     return _np(out.particles), _np(est), mesh.size, mesh.rank
+
+
+def _moment_state(mesh, case):
+    """This rank's slice of one moments case (``kind`` "pf", "gsukf" or
+    "tiled")."""
+    rows = lambda a, dim=0: particle_sharding(mesh, a, dim)  # noqa: E731
+    if case["kind"] == "pf":
+        return pf.PFState(rows(case["x"]), rows(case["w"]), None)
+    if case["kind"] == "gsukf":
+        return gsf.GSUKFState(rows(case["x"]), rows(case["covs"]),
+                              rows(case["w"]), None)
+    return pft.TiledPFState(rows(case["x"].T, 1), None)
+
+
+def control_suite(d):
+    """Every check of ``tests/test_torch_sharded_control.py`` on this
+    rank: the global moments of each case, and the sharded control step
+    (``from_noise``) fed each case's noise and ``r``, through the MPC
+    built in the test's process (its CPU copy, carried by pickle)."""
+    mesh = make_mesh(device="cpu")
+    out = {"moments": {}, "control": {}}
+    for name, case in d["moments"].items():
+        state = _moment_state(mesh, case)
+        est = _np(S.point_estimate(state, mesh))
+        cov = (None if case["kind"] == "tiled"
+               else _np(S.point_covariance(state, mesh)))
+        out["moments"][name] = (est, cov)
+    c = d["control"]
+    mpc = c["mpc"].to("cpu")
+    meas = _gs(c["meas"])
+    step = make_sharded_control_step(mesh, mpc, mpc.model, F, G, dt=c["dt"])
+    n_d, m = (mpc.M + 1) * mpc.Ni, mpc.qp.m
+    for (nd, n_rank), case in c["cases"].items():
+        if nd != mesh.size:
+            continue
+        state = pf.PFState(particle_sharding(mesh, case["x"]),
+                           particle_sharding(mesh, case["w"]), None)
+        state, u, y_pred, sol = step.from_noise(
+            state, _t(c["um1"]), _t(c["z"]), torch.zeros(2),
+            torch.zeros(n_d), torch.zeros(m), meas,
+            particle_sharding(mesh, case["noise"]),
+            torch.tensor(case["r"], dtype=torch.float32))
+        out["control"][(nd, n_rank)] = dict(
+            particles=_np(state.particles),
+            est=_np(S.point_estimate(state, mesh)), u=_np(u),
+            y_pred=_np(y_pred), status=int(sol.status))
+    return out

@@ -32,7 +32,9 @@ def test_imports_with_jax_blocked():
                  "control.mpc", "control.scenario_mpc", "sim", "sim.harness",
                  "sim.loop", "parallel", "parallel.scenario",
                  "parallel.mesh", "parallel.distributed", "parallel._comm",
-                 "parallel.sharded", "parallel.launch", "config",
+                 "parallel.sharded", "parallel.launch",
+                 "parallel.control", "entry", "native", "native.serial",
+                 "config",
                  "utils", "utils.cache", "utils.checkpoint", "utils.power",
                  "utils.run_sequences", "utils.stats", "results",
                  "results._common", "results._filter_bench",

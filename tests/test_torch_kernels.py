@@ -961,7 +961,8 @@ def test_graphed_pacf_chain_on_card(cuda):
     """The pacf series' chain as one CUDA graph: the kernels launch K
     times at the warm-up and K at capture, none at a replay; each replay
     draws fresh noise and steps to finite particles; the series of a few
-    reps is one replay a rep (max |pacf| takes 12 or more)."""
+    reps is one replay a rep (max |pacf| takes 12 or more), its steps
+    timed alone by events captured in the graph."""
     from gpu_se_tpu_torch.results import _filter_bench as fb
     from gpu_se_tpu_torch.results import pacf_series as ps
 
@@ -982,3 +983,8 @@ def test_graphed_pacf_chain_on_card(cuda):
     out = ps.pacf_series(2**16, ps.K, 12, gpu=True)
     assert out["replays"] == 13 and len(out["device_series_ms"]) == 12
     assert min(out["device_series_ms"]) > 0
+    # the events captured in the graph time its steps alone, inside the
+    # events around the copy, the launch and the replay
+    graph, device = (np.array(out[k]) for k in ("graph_series_ms",
+                                                "device_series_ms"))
+    assert len(graph) == 12 and min(graph) > 0 and (graph <= device).all()
