@@ -39,12 +39,13 @@ Phases, each of which raises on failure:
 4. the CUDA tiled and flat steps against the committed reference step
    (``tests/data/torch_parity_step.npz``);
 5. the tiled main path: the tiled particle-filter step of ``bench.py``'s
-   rig at 2^20 particles, one warm-up step and 50 chained steps timed
-   with CUDA events; both of its kernels must have launched once per
-   step. Then one step is checked against the same step through the
+   rig at 2^20 particles as ``bench.py`` jits it, one CUDA graph replay a
+   step (``particle_tiled.graphed_step``), one warm-up step (the
+   capture's) and 50 chained steps timed with CUDA events; both of its
+   kernels must have launched once per step. Then one step is checked against the same step through the
    plain resample, and each stage and each kernel is timed;
 6. the flat main path: a ``ParticleFilter`` on the closed loop's
-   configuration at 2^20 particles, one warm-up and 50 chained steps
+   configuration at 2^20 particles, two warm-ups and 50 chained steps
    under auto routing (compact + expand), then 10 chained steps
    under each of the ``ends``, ``v3``, ``pallas`` and ``coarse`` routes
    (the ends merge, the cumsum merge, the coarse search); each route's
@@ -74,12 +75,29 @@ Phases, each of which raises on failure:
     step, one step must equal the plain route bit for bit, and
     ``expand`` is timed against its plain version at each block size;
 11. the GSUKF path: ``GaussianSumUnscentedKalmanFilter.step`` at 2^18
-    Gaussians on the bench rig, one warm-up and 30 chained steps;
+    Gaussians on the bench rig, two warm-ups and 30 chained steps;
     ``compact`` and ``expand`` must launch once per step, the
     covariances must stay exactly symmetric, one step must equal the
     same step through the plain resample bit for bit; stage times and a
     ``torch.profiler`` busy share. Its fixture
     (``tests/data/torch_parity_gsukf.npz``) is checked in phase 4;
+    (k) graphed steps (``gpu_se_tpu_torch/graphs.py``: a step captured
+    once as a CUDA graph and replayed, the counterpart of ``jax.jit``):
+    the tiled step at 2^20 (``particle_tiled.graphed_step`` and
+    ``graphed_step_from_noise``), the flat ``ParticleFilter`` (auto) at
+    2^20 and the GSUKF at 2^18, each against eager dispatch from the
+    same state and generator state over 10 chained steps, bit for bit
+    (states, moments, generators; the shells' ``predict``, ``update``,
+    ``resample``, ``step`` and ``moments``; the flat ``step`` also once
+    captured under ``impl("ends")``), tensors handed out unchanged after
+    3 more calls, a measurement mixture assigned anew and a state
+    assigned from outside computed with, a generator's ``set_state``
+    honoured, ``compact`` and ``expand`` counted at every replay; 50
+    chained calls graphed and eager timed by CUDA events, with the host
+    ms a call, and each graph's memory pool; every capture or replay
+    that fails raises. (c) below also runs the scan loop eagerly
+    (its filter work under ``graphs.disabled``) and holds its records
+    equal to the graphed loop's;
 12. the control slice, on the canonical rig's MPC at dt_control = 0.1
     (P = 2999, M = 1999: the reference's ``int(300 // 0.1)``; a QP of
     n = 4000, m = 2), one host setup for (a) to (c): the ``Simulation``
@@ -191,8 +209,8 @@ Phases, each of which raises on failure:
     ``compact`` and ``expand`` launched once a call of every op that
     resamples at n >= 2^12 and never otherwise; ``breakdown_pf`` at 2^18;
     ``pacf_series`` (8 steps, 20 reps, one CUDA graph replay a rep:
-    ``compact`` and ``expand`` 8 times at the warm-up and 8 at the
-    capture, 21 replays counted) with its host-ms and device-ms series
+    ``compact`` and ``expand`` 8 times at the warm-up and 8 at each of
+    the 21 replays) with its host-ms and device-ms series
     and the graph's own device ms (events captured in the graph),
     beside the chunked step sequence's max |pacf|; ``pf_power.step_energy`` over 2 s at 2^20 (the card's J
     finite, positive and under 105% of the power limit over the window);
@@ -202,13 +220,15 @@ Phases, each of which raises on failure:
     at dt_control = 0.1 and ``get_simulation_performance(30.0, 0)``.
 
 Each path runs with every launch count set to 0 just before it and read
-just after; a kernel's ``launches`` is the sum over the paths. Every
-kernel's line carries its bound: the bytes it must move (each input
-read once, each output written once, counting only the survivors this
-run's weights leave where the kernel reads no other entry) over 3.35
+just after; a kernel's ``launches`` is the sum over the paths, a graph's
+kernels counted at each of its replays. Every kernel's line carries its
+bound: the bytes it must move (each input read once, each output
+written once, counting only the survivors this run's weights leave
+where the kernel reads no other entry, and of a search's keys only
+those a search of every slot must read: ``searched_keys``) over 3.35
 TB/s, or its compare and add operations over 67 T/s (the H100's float32
 rate outside the tensor cores; the table has no int32 row), whichever is
-larger. ``library_ms`` is ``counter_draw``'s ``torch.randn`` plus
+larger; a kernel timed under its bound fails the run. ``library_ms`` is ``counter_draw``'s ``torch.randn`` plus
 ``torch.rand`` of the same shape, and null for the resample kernels, whose
 functions no single PyTorch call computes. Kernels are timed by their
 device time under ``torch.profiler``;
@@ -216,9 +236,9 @@ a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
 
 Output: one line per phase, the total time, then a ``{"kernels": [...]}``
-JSON line, the ``nvidia-smi`` line, the nine metric JSON lines (tiled PF,
-GSUKF, MPC, closed loop, scenario MPC, instrumentation, multi-device,
-sharded control, experiments) and, last, ``{"ok": true,
+JSON line, the ``nvidia-smi`` line, the ten metric JSON lines (tiled PF,
+GSUKF, graphed steps, MPC, closed loop, scenario MPC, instrumentation,
+multi-device, sharded control, experiments) and, last, ``{"ok": true,
 "device": {...}}``. Run from the
 repository root::
 
@@ -247,7 +267,7 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gpu_se_tpu_torch import convert, rig  # noqa: E402
+from gpu_se_tpu_torch import convert, graphs, rig  # noqa: E402
 from gpu_se_tpu_torch.distributions import GaussianSum  # noqa: E402
 from gpu_se_tpu_torch.filters import gs_ukf as gsf  # noqa: E402
 from gpu_se_tpu_torch.filters import particle as pf  # noqa: E402
@@ -316,6 +336,9 @@ REF_RAISED = 8
 REF_UNSOLVED = 1
 STEPS = 50
 ROUTE_STEPS = 10
+GRAPH_WARM = 2            # warm-up steps of a graphed path: its captures
+GRAPH_STEPS = 10          # (k): chained steps held bit-equal to eager
+GRAPH_TIMED = 50          # (k): chained calls timed, graphed and eager
 GSUKF_STEPS = 30
 REPS = 30
 PROFILE_TRIES = 10
@@ -479,6 +502,18 @@ def gather_bound(n: int, m: int, rows: int, ops: float, extra_in: int = 0,
     the ancestor of every slot; ``ops`` compares."""
     per_survivor = 4 * rows + (8 if compacted else 0)
     return least_time(m * per_survivor + extra_in + n * (4 * rows + 4), ops)
+
+
+def searched_keys(ends: torch.Tensor) -> int:
+    """Keys of the non-decreasing ``ends`` that a search of every slot
+    must read: the slots fall in chunks of ``rc.BLOCK`` whose ancestors
+    lie in the window ``[o_c, o_{c+1})`` of ``rc.chunk_boundaries``; a
+    chunk reads its window whole, or a binary search a slot where that
+    reads fewer (one survivor: one window of about n keys). Keys outside
+    every window (before the first survivor) are read by none."""
+    w = torch.diff(rc.chunk_boundaries(ends, ends.shape[0])).double()
+    return int(torch.minimum(
+        w, rc.BLOCK * torch.ceil(torch.log2(w + 1))).sum())
 
 
 def expand_bound(n: int, m: int, rows: int, block: int):
@@ -1084,12 +1119,14 @@ def phase_main_path(dev, seed: int, card: str):
     f, g = bio.homeostatic_des, bio.static_outputs
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = pft.init(gen, N, x0)
+    # the counterpart of bench.py's jax.jit(step): one graph replay a step
+    step_g = pft.graphed_step()
 
     def step(s):
-        return pft.step(s, u, z, dt, f, g, state_pdf, meas_pdf)
+        return step_g(s, u, z, dt, f, g, state_pdf, meas_pdf)
 
     zero_counts()
-    state = step(state)                       # warm-up
+    state = step(state)                       # warm-up and capture
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1109,9 +1146,10 @@ def phase_main_path(dev, seed: int, card: str):
     if state.x.shape != (5, N):
         raise AssertionError(f"state shape {tuple(state.x.shape)}")
     ms_per_step = start.elapsed_time(end) / STEPS
-    log(f"main path: {STEPS} chained steps at n={N}: {ms_per_step:.4f} "
-        f"ms/step (CUDA events), host wall {wall_s / STEPS * 1e3:.4f} "
-        f"ms/step; launches {launches}; point estimate "
+    log(f"main path: {STEPS} chained graphed steps at n={N}: "
+        f"{ms_per_step:.4f} ms/step (CUDA events), host wall "
+        f"{wall_s / STEPS * 1e3:.4f} ms/step; launches {launches} (the "
+        f"warm-up's, then {step_g.replays} replays'); point estimate "
         f"{[round(v, 5) for v in est.tolist()]}")
 
     # one step through the kernels vs the same step through the plain
@@ -1228,9 +1266,11 @@ def phase_flat_pf(dev, seed: int, card: str):
             f"{[round(v, 5) for v in est.tolist()]}, covariance "
             f"{float(cov):.6g}")
 
-    run("auto", STEPS, warm=1)
+    # two warm-up steps a route: a graph's capture, and another where the
+    # first step's output is laid out anew (the ends route's strided rows)
+    run("auto", STEPS, warm=GRAPH_WARM)
     for route in ("ends", "v3", "pallas", "coarse"):
-        run(route, ROUTE_STEPS)
+        run(route, ROUTE_STEPS, warm=GRAPH_WARM)
 
     # one step per route against the same step through the plain route
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
@@ -1348,6 +1388,10 @@ def time_pair(name: str, kern, plain, card: str, bound, setup=None,
     log(f"time {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
         f"ms (device time, mean of {reps}, {card}); bound {bound[0]:.4f} ms "
         f"({bound[1]}){was}")
+    if min(k1, k2) < bound[0]:
+        raise AssertionError(f"time {name}: {min(k1, k2):.4f} ms is under "
+                             f"the least time {bound[0]:.4f} ms: the bound "
+                             f"counts work the kernel need not do")
     return min(k1, k2), min(p1, p2)
 
 
@@ -1385,13 +1429,15 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
                           lambda: rc.coarse_gather_plain(ends, o, payload)),
     }
     m = survivors(ends)
+    keys = searched_keys(ends)
     bounds = {
         "ends_merge_round": ends_round_bound(N, m, 5),
-        # the keys are cs / ends (extra_in), the ancestor is computed
+        # the keys are cs / ends (extra_in: those a search must read), the
+        # ancestor is computed
         "cumsum_merge": gather_bound(N, m, 5, search_ops(N, N),
-                                     extra_in=4 * N, compacted=False),
+                                     extra_in=4 * keys, compacted=False),
         "coarse_gather": gather_bound(N, m, 5, search_ops(N, rc.BLOCK),
-                                      extra_in=4 * N + 4 * o.shape[0],
+                                      extra_in=4 * keys + 4 * o.shape[0],
                                       compacted=False),
     }
     setups = {"ends_merge_round": fresh(N, 5)}
@@ -1419,7 +1465,7 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
     time_pair("expand on the raw ends (bracket and window)",
               lambda: rp4.expand(ends, payload),
               lambda: rp4.expand_plain(ends, payload), card,
-              gather_bound(N, m, 5, search_ops(N, N), extra_in=4 * N,
+              gather_bound(N, m, 5, search_ops(N, N), extra_in=4 * keys,
                            compacted=False))
 
     # the router's bank tree: 5 means and 25 covariance entries a row
@@ -1464,7 +1510,8 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
     assert_equal("cumsum_merge at 2^24", kern_b(), plain_b())
     time_pair(f"cumsum_merge heavy n={n} rows=5 ({m_big} survivors)",
               kern_b, plain_b, card,
-              gather_bound(n, m_big, 5, search_ops(n, n), extra_in=4 * n,
+              gather_bound(n, m_big, 5, search_ops(n, n),
+                           extra_in=4 * searched_keys(e_big),
                            compacted=False), reps=10)
     del cs_big, x_big
 
@@ -1490,7 +1537,8 @@ def phase_merge_times(dev, card: str, state, r, seed: int):
             f"chunk window {int(torch.diff(o_big).max())} keys)",
             kern_c, plain_c, card,
             gather_bound(n, m_c, 5, search_ops(n, rc.BLOCK),
-                         extra_in=4 * n + 4 * o_big.shape[0],
+                         extra_in=4 * searched_keys(e_big)
+                         + 4 * o_big.shape[0],
                          compacted=False),
             reps=10)[0]
     log(f"coarse_gather at 2^24: one survivor / all survive "
@@ -1562,7 +1610,8 @@ def phase_profile(dev, seed: int, card: str) -> None:
 
     for route in ("auto", "ends", "v3", "coarse"):
         with rs.impl(route):
-            filt.step(u, z, dt)
+            for _ in range(GRAPH_WARM):
+                filt.step(u, z, dt)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -1690,7 +1739,8 @@ def phase_gsukf(dev, seed: int, card: str):
     if filt.means.device != dev:
         raise AssertionError(f"GSUKF bank on {filt.means.device}")
     zero_counts()
-    filt.step(u, z, dt)                               # warm-up
+    for _ in range(GRAPH_WARM):                       # warm-up, captures
+        filt.step(u, z, dt)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1702,8 +1752,9 @@ def phase_gsukf(dev, seed: int, card: str):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts()
-    expect_counts("GSUKF path", counts, {"compact": GSUKF_STEPS + 1,
-                                         "expand": GSUKF_STEPS + 1})
+    expect_counts("GSUKF path", counts,
+                  {"compact": GSUKF_STEPS + GRAPH_WARM,
+                   "expand": GSUKF_STEPS + GRAPH_WARM})
     if not torch.equal(filt.covariances, filt.covariances.mT):
         raise AssertionError("GSUKF path: covariances not exactly symmetric")
     est, cov = filt.moments()
@@ -1763,7 +1814,8 @@ def phase_gsukf(dev, seed: int, card: str):
     for name, fn in stages.items():
         log(f"GSUKF stage {name}: {time_ms(fn):.4f} ms (median of {REPS}, "
             f"synchronised, {card})")
-    filt.step(u, z, dt)
+    for _ in range(GRAPH_WARM):
+        filt.step(u, z, dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1786,6 +1838,313 @@ def phase_gsukf(dev, seed: int, card: str):
         "ms_per_step": ms_per_step, "steps": GSUKF_STEPS, "seed": seed,
         "card": card,
     }
+    return metric
+
+
+# ----------------------------------------------------------------------
+# (k) graphed steps: each step captured once as a CUDA graph, replayed
+# ----------------------------------------------------------------------
+def tensors_of(tree) -> list:
+    """The tensors of a state, a tuple or a tensor, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree)
+                for t in tensors_of(getattr(tree, f.name))]
+    if isinstance(tree, (tuple, list)):
+        return [t for c in tree for t in tensors_of(c)]
+    return []
+
+
+def same(path: str, got, want) -> None:
+    """Raise unless ``got`` and ``want`` hold bit-equal tensors and, for
+    states, generators in the same position."""
+    g, w = tensors_of(got), tensors_of(want)
+    if len(g) != len(w) or not all(torch.equal(a, b) for a, b in zip(g, w)):
+        raise AssertionError(f"(k) {path}: graphed differs from eager")
+    gens = [getattr(x, "generator", None) for x in (got, want)]
+    if None not in gens and not torch.equal(gens[0].get_state(),
+                                            gens[1].get_state()):
+        raise AssertionError(f"(k) {path}: the generators part")
+
+
+def graphed_vs_eager(path: str, graphed, eager, card: str) -> dict:
+    """ms a call by CUDA events over ``GRAPH_TIMED`` chained calls after
+    one warm-up call, and host ms a call (the calls' enqueue, before the
+    synchronise): eager, graphed, graphed, eager; the better of each
+    two."""
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(GRAPH_TIMED):
+            fn()
+        t1 = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) / GRAPH_TIMED,
+                (t1 - t0) * 1e3 / GRAPH_TIMED)
+
+    e1, g1, g2, e2 = timed(eager), timed(graphed), timed(graphed), \
+        timed(eager)
+    out = {"eager_ms": min(e1[0], e2[0]), "graphed_ms": min(g1[0], g2[0]),
+           "eager_host_ms": min(e1[1], e2[1]),
+           "graphed_host_ms": min(g1[1], g2[1])}
+    log(f"(k) {path}: {GRAPH_TIMED} chained calls, eager {e1[0]:.4f}/"
+        f"{e2[0]:.4f} ms a call (host {e1[1]:.4f}/{e2[1]:.4f}), graphed "
+        f"{g1[0]:.4f}/{g2[0]:.4f} ms (host {g1[1]:.4f}/{g2[1]:.4f}) (CUDA "
+        f"events, {card})")
+    return out
+
+
+def unchanged(path: str, held: list, calls) -> None:
+    """Tensors handed out before ``calls`` keep their values after it."""
+    snaps = [t.clone() for t in held]
+    calls()
+    torch.cuda.synchronize()
+    if not all(torch.equal(t, c) for t, c in zip(held, snaps)):
+        raise AssertionError(f"(k) {path}: a tensor handed out before "
+                             f"later calls changed")
+
+
+def phase_graphed_tiled(dev, seed: int, card: str, new_meas) -> dict:
+    """(k) the tiled step at 2^20 on ``bench.py``'s rig,
+    ``pft.graphed_step`` against ``pft.step``; ``new_meas`` a measurement
+    mixture of the rig's shapes."""
+    x0, state_pdf, meas_pdf = bench_rig(dev)
+    f, g = bio.homeostatic_des, bio.static_outputs
+    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
+    z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
+    dt = 0.1
+
+    def start():
+        return pft.init(torch.Generator(device=dev).manual_seed(seed + 21),
+                        N, x0)
+
+    step_g = pft.graphed_step()
+    eager, graphed = start(), start()
+    zero_counts()
+    for i in range(GRAPH_STEPS):
+        eager = pft.step(eager, u, z, dt, f, g, state_pdf, meas_pdf)
+        graphed = step_g(graphed, u, z, dt, f, g, state_pdf, meas_pdf)
+        same(f"tiled step {i}", graphed, eager)
+    # the eager steps, the warm-up, then one replay a step
+    expect_counts("(k) tiled step", read_counts(),
+                  {"compact": 2 * GRAPH_STEPS, "expand": 2 * GRAPH_STEPS})
+    if (step_g.captures, step_g.replays) != (1, GRAPH_STEPS - 1):
+        raise AssertionError(f"(k) tiled step: {step_g.captures} captures, "
+                             f"{step_g.replays} replays")
+    held = [graphed.x]
+
+    def three():
+        nonlocal graphed
+        for _ in range(3):
+            graphed = step_g(graphed, u, z, dt, f, g, state_pdf, meas_pdf)
+
+    unchanged("tiled step", held, three)
+    # the noise fed: two calls, the second a replay of other inputs
+    sfn = pft.graphed_step_from_noise()
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    for i in range(2):
+        noise = state_pdf.draw_t(gen, N)
+        r = torch.rand((), generator=gen, device=dev)
+        args = (graphed.x, u, z, dt, f, g, meas_pdf, noise, r)
+        same(f"tiled step_from_noise {i}", sfn(*args),
+             pft.step_from_noise(*args))
+    # another measurement mixture of the same shapes: captured anew, and
+    # computed with, as eager computes
+    gen_e = torch.Generator(device=dev)
+    gen_e.set_state(graphed.generator.get_state())
+    want = pft.step(pft.TiledPFState(graphed.x, gen_e), u, z, dt, f, g,
+                    state_pdf, new_meas)
+    graphed = step_g(graphed, u, z, dt, f, g, state_pdf, new_meas)
+    same("tiled step with a new measurement pdf", graphed, want)
+    if step_g.captures != 2:
+        raise AssertionError("(k) tiled step: a new dist did not capture")
+    # launches: the graph's two kernels at every replay
+    zero_counts()
+    for _ in range(5):
+        graphed = step_g(graphed, u, z, dt, f, g, state_pdf, meas_pdf)
+    expect_counts("(k) tiled replays", read_counts(),
+                  {"compact": 5, "expand": 5})
+    holder = {"e": eager, "g": graphed}
+
+    def eager_call():
+        holder["e"] = pft.step(holder["e"], u, z, dt, f, g, state_pdf,
+                               meas_pdf)
+
+    def graphed_call():
+        holder["g"] = step_g(holder["g"], u, z, dt, f, g, state_pdf,
+                             meas_pdf)
+
+    zero_counts()
+    times = graphed_vs_eager("tiled step n=2^20", graphed_call, eager_call,
+                             card)
+    expect_counts("(k) tiled timed", read_counts(),
+                  {k: 4 * (GRAPH_TIMED + 1) for k in ("compact", "expand")})
+    times["pool_mib"] = step_g.pool_bytes() / 2**20
+    log(f"(k) tiled step: graphed bit-equal to eager over {GRAPH_STEPS} "
+        f"steps (generators too), outputs kept after later calls, a new "
+        f"dist captured anew; pool {times['pool_mib']:.1f} MiB ({card})")
+    return times
+
+
+def phase_graphed_shell(name: str, make, new_meas, dev, card: str,
+                        ends: bool = False) -> dict:
+    """(k) a filter shell's graphed methods against the same shell's
+    eager ones (``graphs.disabled``), two shells from one seed: predict,
+    update and resample, then step, each followed by moments; a forced
+    ``impl("ends")`` capture (``ends``); tensors handed out kept; dists
+    and state reassigned; replays and launches; times."""
+    f_e, f_g = make(), make()
+    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
+    z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
+    dt = 0.1
+
+    def both(method, *args, path=""):
+        with graphs.disabled():
+            getattr(f_e, method)(*args)
+        getattr(f_g, method)(*args)
+        same(f"{name} {method}{path}", f_g.state, f_e.state)
+        with graphs.disabled():
+            want = f_e.moments()
+        same(f"{name} moments after {method}{path}", f_g.moments(), want)
+
+    zero_counts()
+    for i in range(GRAPH_STEPS):
+        if i < GRAPH_STEPS // 2:
+            both("predict", u, dt, path=f" {i}")
+            both("update", u, z, path=f" {i}")
+            both("resample", path=f" {i}")
+        else:
+            both("step", u, z, dt, path=f" {i}")
+    expect_counts(f"(k) {name}", read_counts(),
+                  {"compact": 2 * GRAPH_STEPS, "expand": 2 * GRAPH_STEPS})
+    # every call a capture (a key's first: its warm-up) or a replay; a
+    # key is also the inputs' strides, which some outputs change
+    half = GRAPH_STEPS // 2
+    calls = {"predict": half, "update": half, "resample": half,
+             "step": half, "moments": 4 * half}
+    got = {k: (v.captures, v.replays) for k, v in f_g.graphs.items()}
+    if any(c + r != calls[k] or r < 1 for k, (c, r) in got.items()):
+        raise AssertionError(f"(k) {name}: captures, replays {got} for "
+                             f"calls {calls}")
+    if ends:
+        zero_counts()
+        before = f_g.graphs["step"].captures
+        # the route keys the graph; the ends route's rows come back as
+        # a strided view of its packed payload, which keys one more
+        # graph, replayed by the third step
+        with rs.impl("ends"):
+            both("step", u, z, dt, path=" under impl('ends')")
+            if f_g.graphs["step"].captures != before + 1:
+                raise AssertionError(f"(k) {name}: the route did not key "
+                                     f"the step's graph")
+            for _ in range(2):
+                both("step", u, z, dt, path=" under impl('ends')")
+        for _ in range(2):
+            both("step", u, z, dt, path=" back on auto")
+        expect_counts(f"(k) {name} under impl('ends')", read_counts(),
+                      {"ends_merge_round": 6, "compact": 4, "expand": 4})
+    # tensors handed out, then three more calls
+    est, cov = f_g.moments()
+    held = tensors_of(f_g.state) + [est, cov]
+
+    def three():
+        for _ in range(3):
+            f_g.step(u, z, dt)
+        f_g.moments()
+
+    unchanged(name, held, three)
+    for _ in range(3):
+        with graphs.disabled():
+            f_e.step(u, z, dt)
+    same(f"{name} after the three calls", f_g.state, f_e.state)
+    # dists assigned anew
+    f_g.step(u, z, dt)                   # a replay: the key is warm
+    with graphs.disabled():
+        f_e.step(u, z, dt)
+    before = f_g.graphs["step"].captures
+    for filt in (f_e, f_g):
+        filt.measurement_pdf = new_meas
+    both("step", u, z, dt, path=" with a new measurement pdf")
+    if f_g.graphs["step"].captures != before + 1:
+        raise AssertionError(f"(k) {name}: a new dist did not capture")
+    # a state assigned from outside (a checkpoint's), its own generator;
+    # then that generator set back to a saved state
+    gens = []
+    for filt in (f_e, f_g):
+        st = filt.state
+        gen = torch.Generator(device=dev).manual_seed(5)
+        gens.append(gen)
+        filt.state = dataclasses.replace(
+            st, generator=gen, **{k.name: getattr(st, k.name).clone()
+                                  for k in dataclasses.fields(st)
+                                  if k.name != "generator"})
+    saved = gens[0].get_state()
+    both("step", u, z, dt, path=" from an assigned state")
+    for gen in gens:
+        gen.set_state(saved)
+    both("step", u, z, dt, path=" after set_state")
+    # launches: the graph's kernels at every replay
+    zero_counts()
+    before = f_g.graphs["step"].replays
+    for _ in range(5):
+        f_g.step(u, z, dt)
+    expect_counts(f"(k) {name} replays", read_counts(),
+                  {"compact": 5, "expand": 5})
+    if f_g.graphs["step"].replays != before + 5:
+        raise AssertionError(f"(k) {name}: replays not counted")
+
+    def eager_call():
+        with graphs.disabled():
+            f_e.step(u, z, dt)
+
+    times = graphed_vs_eager(f"{name} step", lambda: f_g.step(u, z, dt),
+                             eager_call, card)
+    times["pool_mib"] = {k: v.pool_bytes() / 2**20
+                         for k, v in f_g.graphs.items()}
+    log(f"(k) {name}: predict, update, resample, step and moments graphed "
+        f"bit-equal to eager (states, moments, generators), outputs kept "
+        f"after later calls, new dists and an assigned state honoured, "
+        f"set_state resumed; pools MiB "
+        f"{ {k: round(v, 1) for k, v in times['pool_mib'].items()} } "
+        f"({card})")
+    return times
+
+
+def phase_graphs(dev, seed: int, card: str) -> dict:
+    """(k) graphed steps: the tiled step at 2^20, the flat
+    ``ParticleFilter`` (auto, and one forced ``impl("ends")`` capture) at
+    2^20 and the GSUKF at 2^18, each graphed against eager. Returns the
+    times."""
+    t0 = time.perf_counter()
+    f, g = bio.homeostatic_des, bio.static_outputs
+    x0h, spdf, mpdf = harness_rig(dev)
+    x0b, spdf_b, mpdf_b = bench_rig(dev)
+    # a measurement mixture of the same shapes with wider components
+    meas2 = GaussianSum.create(mpdf.means.cpu().numpy(),
+                               4 * mpdf.covariances.cpu().double().numpy(),
+                               mpdf.weights.cpu().numpy(), device=dev)
+    meas2_b = GaussianSum.create(mpdf_b.means.cpu().numpy(),
+                                 4 * mpdf_b.covariances.cpu().double().numpy(),
+                                 mpdf_b.weights.cpu().numpy(), device=dev)
+    metric = {"metric": "graphed_vs_eager_ms_per_step", "card": card,
+              "tiled_2^20": phase_graphed_tiled(dev, seed, card, meas2_b)}
+    metric["flat_2^20"] = phase_graphed_shell(
+        "flat ParticleFilter n=2^20",
+        lambda: pf.ParticleFilter(f, g, N, x0h, spdf, mpdf, seed=seed),
+        meas2, dev, card, ends=True)
+    metric["gsukf_2^18"] = phase_graphed_shell(
+        "GSUKF N=2^18",
+        lambda: gsf.GaussianSumUnscentedKalmanFilter(
+            f, g, N_BANK, x0b, spdf_b, mpdf_b, seed=seed, device=dev),
+        meas2_b, dev, card)
+    metric["phase_s"] = time.perf_counter() - t0
+    log(f"(k) graphed steps: {metric['phase_s']:.1f} s ({card})")
     return metric
 
 
@@ -2001,14 +2360,29 @@ def phase_scan_loop(dev, s, state0, x0, card: str, seed: int) -> dict:
         K, lin, state_pdf.dist, meas_pdf.dist, end_time=LOOP_END,
         dt_control=DT_CONTROL, dt_predict=DT_CONTROL)
     events = int(sim_loop.event_masks(ts, DT_CONTROL, DT_CONTROL)[1].sum())
-    gen = torch.Generator(device=dev).manual_seed(seed + 7)
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    rec = run(state0, x0, gen)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    def timed_run():
+        gen = torch.Generator(device=dev).manual_seed(seed + 7)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        rec = run(state0, x0, gen)
+        torch.cuda.synchronize()
+        return rec, time.perf_counter() - t0
+
+    # (k): the loop with its filter work eager (the QP's chunks replayed
+    # from the graphs (a) and (b) captured, as before the filter's
+    # graphs), then graphed (the filter's three captures in it), from
+    # one seed
+    with graphs.disabled(*run.graphs.values()):
+        rec_eager, wall_eager = timed_run()
+    loop_counts("scan loop (PF), eager", events)
+    rec, wall = timed_run()
     loop_counts("scan loop (PF)", events)
+    for name in rec._fields:
+        if not torch.equal(getattr(rec, name), getattr(rec_eager, name)):
+            raise AssertionError(f"(k) scan loop: graphed {name} differ from "
+                                 f"the eager loop's")
     for name in rec._fields:
         t_ = getattr(rec, name)
         if t_.device != dev or not torch.isfinite(t_.float()).all():
@@ -2020,13 +2394,16 @@ def phase_scan_loop(dev, s, state0, x0, card: str, seed: int) -> dict:
     if np.abs(us - np.array([0.06, 0.2])).max() <= 1e-4:
         raise AssertionError("scan loop: the controller never moved u")
     ms = wall / events * 1e3
+    ms_eager = wall_eager / events * 1e3
     log(f"scan loop (c): make_scan_loop, PF at n={N}, MPC P={K.P}: "
         f"{events} control events in {wall:.3f} s, {ms:.3f} ms per control "
-        f"event; solved share {solved:.3f}; final x "
+        f"event with graphed filter work (its three captures in it), "
+        f"{ms_eager:.3f} with it eager; records equal; solved "
+        f"share {solved:.3f}; final x "
         f"{[round(v, 4) for v in rec.xs[-1].tolist()]}, estimate "
         f"{[round(v, 4) for v in rec.xs_f[-1].tolist()]} ({card})")
-    return {"ms_per_control_event": ms, "solved_share": solved,
-            "events": events}
+    return {"ms_per_control_event": ms, "ms_per_control_event_eager":
+            ms_eager, "solved_share": solved, "events": events}
 
 
 def phase_gsukf_loop(dev, card: str, seed: int) -> dict:
@@ -2281,7 +2658,8 @@ def phase_instrumentation(dev, seed: int, card: str) -> dict:
     def run_seq(n, runs):
         fl = filt(n)
         zero_counts()
-        fl.step(u, z, dt)
+        for _ in range(GRAPH_WARM):
+            fl.step(u, z, dt)
         torch.cuda.synchronize()
         out = np.empty(runs)
         done = 0
@@ -2294,7 +2672,7 @@ def phase_instrumentation(dev, seed: int, card: str) -> dict:
             out[done:done + c] = (time.perf_counter() - t0) / c * 1e3
             done += c
         expect_counts(f"run sequence, n={n}", read_counts(),
-                      {k: runs + 1 for k in kernels})
+                      {k: runs + GRAPH_WARM for k in kernels})
         return out
 
     ns, seqs = run_seq(RUN_SEQ_NS, RUN_SEQ_RUNS)
@@ -2308,7 +2686,8 @@ def phase_instrumentation(dev, seed: int, card: str) -> dict:
             f"({card})")
 
     fl = filt(N)
-    fl.step(u, z, dt)
+    for _ in range(GRAPH_WARM):
+        fl.step(u, z, dt)
     torch.cuda.synchronize()
 
     def steps_for(n, t_run):
@@ -2344,13 +2723,16 @@ def phase_instrumentation(dev, seed: int, card: str) -> dict:
     state = fl.state
     ckpt.save(0, state)
 
-    def two_steps(s):
+    def two_steps():
         for _ in range(2):
-            s = pf.step(s, u, z, dt, f, g, state_pdf, meas_pdf)
-        return s
+            fl.step(u, z, dt)
+        return fl.state
 
-    first = two_steps(state)
-    again = two_steps(ckpt.restore(state))
+    # the shell's graphed steps: the restore sets the state of the
+    # generator its graphs registered
+    first = two_steps()
+    fl.state = ckpt.restore(state)
+    again = two_steps()
     ckpt.close()
     shutil.rmtree(ckpt_dir)
     expect_counts("checkpoint resume", read_counts(), {k: 4 for k in kernels})
@@ -3198,9 +3580,10 @@ def experiments(dev, card: str) -> dict:
     zero_counts()
     series = exp_pacf.pacf_series(N, EXP_PACF_K, EXP_PACF_REPS, gpu=True)
     # the kernels launch K times at the warm-up on a side stream and K
-    # times at the capture; each rep, and the warm-up rep, is one replay
+    # times at each replay: each rep, and the warm-up rep, is one
+    k = EXP_PACF_K * (EXP_PACF_REPS + 2)
     expect_counts("(i) pacf series", read_counts(),
-                  {"compact": 2 * EXP_PACF_K, "expand": 2 * EXP_PACF_K})
+                  {"compact": k, "expand": k})
     if series["replays"] != EXP_PACF_REPS + 1:
         raise AssertionError(f"(i) pacf series: {series['replays']} "
                              f"replays, not {EXP_PACF_REPS + 1}")
@@ -3326,6 +3709,7 @@ def main() -> int:
     v2_err = phase_v2_path(dev, args.seed, card)
     errs["expand"] = max(errs["expand"], v2_err)
     gsukf_metric = phase_gsukf(dev, args.seed, card)
+    graph_metric = phase_graphs(dev, args.seed, card)
     sim_b, K_cpu, setup_s = control_setup(dev, args.seed, card)
     mpc_metric = phase_mpc(sim_b, K_cpu, card)
     mpc_metric["host_setup_s"] = setup_s
@@ -3349,6 +3733,10 @@ def main() -> int:
     # functions (each is a sorted search, a compaction or a merge, and a
     # gather): their library_ms stays null
     library = {"counter_draw": draw_library_ms}
+    for name in KERNELS:
+        if times[name][0] < bounds[name][0]:
+            raise AssertionError(f"{name}: {times[name][0]:.4f} ms is under "
+                                 f"its bound {bounds[name][0]:.4f} ms")
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": TALLY[name],
@@ -3364,6 +3752,7 @@ def main() -> int:
     print(card)
     print(json.dumps(metric))
     print(json.dumps(gsukf_metric))
+    print(json.dumps(graph_metric))
     print(json.dumps(mpc_metric))
     print(json.dumps(loop_metric))
     print(json.dumps(scenario_metric))

@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.ops.smallmat import _sqrt
 
 # Status codes (OSQP-compatible naming)
@@ -287,27 +288,14 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _graphed(c: QPConstants, key, fn, args: dict):
-    """``fn(**args)`` replayed from a CUDA graph cached on ``c`` under
-    ``key``: captured at the first call (after one warm-up run on a side
-    stream), later calls copy ``args`` into its inputs and replay it. The
-    outputs are the graph's own tensors, rewritten by the next replay."""
+    """``fn(**args)`` as a CUDA graph (``gpu_se_tpu_torch.graphs``) cached
+    on ``c`` under ``key``: run at the first call, then captured; later
+    calls copy ``args`` into its inputs and replay it. The outputs of a
+    replay are the graph's own tensors, rewritten by the next replay."""
     cache = c.__dict__.setdefault("_graphs", {})
     if key not in cache:
-        static = {k: v.clone() for k, v in args.items()}
-        side = torch.cuda.Stream(device=c.A_s.device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(**static)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn(**static)
-        cache[key] = (graph, static, out)
-    graph, static, out = cache[key]
-    for k, v in args.items():
-        static[k].copy_(v)
-    graph.replay()
-    return out
+        cache[key] = graphs.Graphed(fn, copy_out=False)
+    return cache[key](**args)
 
 
 def _amax(v: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,9 @@ from typing import Callable
 
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
+from gpu_se_tpu_torch.filters import resampling
 from gpu_se_tpu_torch.filters.particle import _as_dist
 from gpu_se_tpu_torch.filters.resampling import (
     systematic_resample_bank,
@@ -80,10 +82,12 @@ class GSUKFState:
 def sigma_weights(nx: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """``(2 nx + 1,)`` sigma weights: ``w_mu + 2 nx w_sigma = 1`` and
     ``w_mu / w_sigma = 1.6``."""
-    w = torch.full((2 * nx + 1,), 1.0 / (2 * nx + 8.0 / 5.0), dtype=dtype,
+    # two fills, no copy from the host: a CUDA graph captures them
+    w_mu = torch.full((1,), 1.0 / (1.0 + 5.0 / 4.0 * nx), dtype=dtype,
+                      device=device)
+    w = torch.full((2 * nx,), 1.0 / (2 * nx + 8.0 / 5.0), dtype=dtype,
                    device=device)
-    w[0] = 1.0 / (1.0 + 5.0 / 4.0 * nx)
-    return w
+    return torch.cat([w_mu, w])
 
 
 def _batched_cholesky_jittered(covs: torch.Tensor,
@@ -318,14 +322,32 @@ def point_estimate(state: GSUKFState) -> torch.Tensor:
     return weighted_mean(state.weights, state.means)
 
 
-def point_covariance(state: GSUKFState) -> torch.Tensor:
-    """Largest singular value of the total covariance, ``E[cov] +
-    Var[means]``."""
+def covariance_matrix(state: GSUKFState) -> torch.Tensor:
+    """The total covariance ``E[cov] + Var[means]``, ``(nx, nx)``."""
     w = state.weights / blocked_sum(state.weights)
     cov_cov = blocked_sum(w[:, None, None] * state.covariances)
     dist = state.means - weighted_mean(state.weights, state.means)
     cov_mean = blocked_outer_sum(dist, dist * w[:, None])
-    return torch.linalg.svdvals(cov_cov + cov_mean)[0]
+    return cov_cov + cov_mean
+
+
+def point_covariance(state: GSUKFState) -> torch.Tensor:
+    """Largest singular value of the total covariance, ``E[cov] +
+    Var[means]``."""
+    return torch.linalg.svdvals(covariance_matrix(state))[0]
+
+
+def _update(state: GSUKFState, u, z, g: Callable,
+            measurement_pdf: GaussianSum, stabilized: bool) -> GSUKFState:
+    upd = update_stabilized if stabilized else update
+    return upd(state, u, z, g, measurement_pdf)
+
+
+def _moment_parts(means, covariances, weights):
+    """The point estimate and the total covariance matrix (the moments up
+    to the singular values, as ``filters/particle._moment_parts``)."""
+    state = GSUKFState(means, covariances, weights, None)
+    return point_estimate(state), covariance_matrix(state)
 
 
 # ----------------------------------------------------------------------
@@ -336,6 +358,11 @@ class GaussianSumUnscentedKalmanFilter:
     live on ``device``: the card unless the caller passes
     ``device="cpu"``. Assigning :attr:`state` clears the :meth:`moments`
     cache.
+
+    ``predict``, ``update``, ``resample`` (the bank's compact + expand),
+    ``step`` and ``moments`` each run on the card as the replay of a CUDA
+    graph of their own (:attr:`graphs`), as the
+    ``particle.ParticleFilter`` shell's do.
     """
 
     def __init__(self, f, g, N_particles, x0, state_pdf, measurement_pdf,
@@ -350,6 +377,14 @@ class GaussianSumUnscentedKalmanFilter:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = init(generator, self.N_particles,
                           _as_dist(x0).to(self.device), self.state_pdf)
+        route = resampling.route
+        self.graphs = {
+            "predict": graphs.Graphed(predict),
+            "update": graphs.Graphed(_update),
+            "resample": graphs.Graphed(resample, key=route),
+            "step": graphs.Graphed(step, key=route),
+            "moments": graphs.Graphed(_moment_parts),
+        }
 
     @property
     def state(self) -> GSUKFState:
@@ -365,22 +400,22 @@ class GaussianSumUnscentedKalmanFilter:
 
     # -- reference API --------------------------------------------------
     def predict(self, u, dt):
-        self.state = predict(self.state, self._t(u), self._t(dt), self.f,
-                             self.state_pdf)
+        self.state = self.graphs["predict"](
+            self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
 
     def update(self, u, z):
-        upd = update_stabilized if self.stabilized else update
-        self.state = upd(self.state, self._t(u), self._t(z), self.g,
-                         self.measurement_pdf)
+        self.state = self.graphs["update"](
+            self.state, self._t(u), self._t(z), self.g, self.measurement_pdf,
+            self.stabilized)
 
     def resample(self):
-        self.state = resample(self.state)
+        self.state = self.graphs["resample"](self.state)
 
     def step(self, u, z, dt):
-        """Predict, update and resample in one call."""
-        self.state = step(self.state, self._t(u), self._t(z), self._t(dt),
-                          self.f, self.g, self.state_pdf,
-                          self.measurement_pdf, self.stabilized)
+        """Predict, update and resample in one call (one replay)."""
+        self.state = self.graphs["step"](
+            self.state, self._t(u), self._t(z), self._t(dt), self.f, self.g,
+            self.state_pdf, self.measurement_pdf, self.stabilized)
 
     def point_estimate(self):
         return point_estimate(self.state)
@@ -392,8 +427,10 @@ class GaussianSumUnscentedKalmanFilter:
         """``(point_estimate, point_covariance)``, cached until the state
         changes."""
         if self._moments_cache is None:
-            self._moments_cache = (point_estimate(self.state),
-                                   point_covariance(self.state))
+            st = self.state
+            est, cov = self.graphs["moments"](st.means, st.covariances,
+                                              st.weights)
+            self._moments_cache = (est, torch.linalg.svdvals(cov)[0])
         return self._moments_cache
 
     @property

@@ -26,7 +26,9 @@ from typing import Callable
 
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
+from gpu_se_tpu_torch.filters import resampling
 from gpu_se_tpu_torch.filters.resampling import (
     systematic_resample,
     systematic_resample_from_r,
@@ -137,12 +139,30 @@ def point_estimate(state: PFState) -> torch.Tensor:
     return weighted_mean(state.weights, state.particles)
 
 
-def point_covariance(state: PFState) -> torch.Tensor:
-    """Largest singular value of the weighted particle covariance."""
+def covariance_matrix(state: PFState) -> torch.Tensor:
+    """The weighted particle covariance ``(nx, nx)``, by blocked sums."""
     w = state.weights / blocked_sum(state.weights)
     dist = state.particles - weighted_mean(state.weights, state.particles)
-    cov = blocked_outer_sum(dist, dist * w[:, None])
-    return torch.linalg.svdvals(cov)[0]
+    return blocked_outer_sum(dist, dist * w[:, None])
+
+
+def point_covariance(state: PFState) -> torch.Tensor:
+    """Largest singular value of the weighted particle covariance."""
+    return torch.linalg.svdvals(covariance_matrix(state))[0]
+
+
+def _update(state: PFState, u, z, g: Callable, measurement_pdf: GaussianSum,
+            stabilized: bool) -> PFState:
+    upd = update_stabilized if stabilized else update
+    return upd(state, u, z, g, measurement_pdf)
+
+
+def _moment_parts(particles, weights):
+    """The point estimate and the covariance matrix: the moments up to
+    the singular values, which cuSOLVER finds only with a read of its
+    status back to the host."""
+    state = PFState(particles, weights, None)
+    return point_estimate(state), covariance_matrix(state)
 
 
 # ----------------------------------------------------------------------
@@ -152,6 +172,14 @@ class ParticleFilter:
     The state, the distributions and every call's ``u``, ``z`` and ``dt``
     live on ``device`` (default: ``x0``'s). Assigning :attr:`state`
     clears the :meth:`moments` cache.
+
+    As the reference jits ``predict``, ``update``, ``resample``, ``step``
+    and ``moments``, each runs on the card as the replay of its own CUDA
+    graph (:attr:`graphs`, ``gpu_se_tpu_torch.graphs``), captured anew for
+    another shape, resample route, ``stabilized`` flag, generator or
+    assigned distribution; ``moments`` takes the covariance's largest
+    singular value after its replay. The tensors it hands out keep their
+    values after later calls. On the CPU each runs directly.
     """
 
     def __init__(self, f, g, N_particles, x0, state_pdf, measurement_pdf,
@@ -167,6 +195,14 @@ class ParticleFilter:
         self._moments_cache = None
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = init(generator, self.N_particles, x0.to(self.device))
+        route = resampling.route
+        self.graphs = {
+            "predict": graphs.Graphed(predict),
+            "update": graphs.Graphed(_update),
+            "resample": graphs.Graphed(resample, key=route),
+            "step": graphs.Graphed(step, key=route),
+            "moments": graphs.Graphed(_moment_parts),
+        }
 
     @property
     def state(self) -> PFState:
@@ -182,22 +218,22 @@ class ParticleFilter:
 
     # -- reference API --------------------------------------------------
     def predict(self, u, dt):
-        self.state = predict(self.state, self._t(u), self._t(dt), self.f,
-                             self.state_pdf)
+        self.state = self.graphs["predict"](
+            self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
 
     def update(self, u, z):
-        upd = update_stabilized if self.stabilized else update
-        self.state = upd(self.state, self._t(u), self._t(z), self.g,
-                         self.measurement_pdf)
+        self.state = self.graphs["update"](
+            self.state, self._t(u), self._t(z), self.g, self.measurement_pdf,
+            self.stabilized)
 
     def resample(self):
-        self.state = resample(self.state)
+        self.state = self.graphs["resample"](self.state)
 
     def step(self, u, z, dt):
-        """Predict, update and resample in one call."""
-        self.state = step(self.state, self._t(u), self._t(z), self._t(dt),
-                          self.f, self.g, self.state_pdf,
-                          self.measurement_pdf, self.stabilized)
+        """Predict, update and resample in one call (one replay)."""
+        self.state = self.graphs["step"](
+            self.state, self._t(u), self._t(z), self._t(dt), self.f, self.g,
+            self.state_pdf, self.measurement_pdf, self.stabilized)
 
     def point_estimate(self):
         return point_estimate(self.state)
@@ -209,8 +245,9 @@ class ParticleFilter:
         """``(point_estimate, point_covariance)``, cached until the state
         changes."""
         if self._moments_cache is None:
-            self._moments_cache = (point_estimate(self.state),
-                                   point_covariance(self.state))
+            est, cov = self.graphs["moments"](self.state.particles,
+                                              self.state.weights)
+            self._moments_cache = (est, torch.linalg.svdvals(cov)[0])
         return self._moments_cache
 
     @property

@@ -24,6 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
 from gpu_se_tpu_torch.ops.resample_coarse import ends_from_weights
 from gpu_se_tpu_torch.ops.resample_pallas4 import resample_core
@@ -96,6 +97,20 @@ def step(state: TiledPFState, u, z, dt, f: Callable, g: Callable,
                    device=x.device)
     x = step_from_noise(x, u, z, dt, f, g, meas_pdf, noise, r)
     return TiledPFState(x=x, generator=state.generator)
+
+
+def graphed_step() -> graphs.Graphed:
+    """:func:`step` as a CUDA graph on the card, replayed a call: the
+    counterpart of the reference's ``jax.jit(particle_tiled.step)``
+    (``bench.py``, ``entry()``). Call it as :func:`step`; the next
+    state's particles are the caller's own."""
+    return graphs.Graphed(step)
+
+
+def graphed_step_from_noise() -> graphs.Graphed:
+    """:func:`step_from_noise` as a CUDA graph, for a caller that feeds
+    the noise and ``r``."""
+    return graphs.Graphed(step_from_noise)
 
 
 def point_estimate(state: TiledPFState) -> torch.Tensor:

@@ -94,6 +94,12 @@ class impl:
         _IMPL = self._prev
 
 
+def route() -> str:
+    """The route in force (``"auto"`` unless :class:`impl` forces one):
+    part of the key of a graphed function that resamples."""
+    return _IMPL
+
+
 def f32_exact_dtype(dtype: torch.dtype) -> bool:
     """True if a round trip through float32 is lossless: float32,
     bfloat16, float16 and the integers of at most 16 bits. The kernels

@@ -1,0 +1,320 @@
+"""CUDA graphs of the port's steps: its counterpart of ``jax.jit``.
+
+The reference compiles each filter step into one program (``jax.jit`` of
+the shells' methods, ``gpu_se_tpu/filters/particle.py:176-188``, of the
+tiled step in ``bench.py`` and of the whole closed loop). On the card the
+port captures such a step once as a CUDA graph and replays it:
+:class:`Graphed` wraps a function of tensors, and a call
+
+* on CPU tensors runs the function directly (the caller asked for the
+  CPU);
+* on the card, the first time a key is seen, runs the function eagerly on
+  a side stream (the warm-up, whose result it returns), then captures it;
+  later calls copy their input tensors into the graph's static buffers
+  and replay it. A capture or a replay that fails raises: nothing falls
+  back to eager dispatch.
+
+The arguments are walked as a tree: tuples, lists, dicts and dataclasses
+(field by field) are descended into, and each leaf is
+
+* a tensor: an input, copied into its static buffer at every call;
+* a ``torch.Generator``: registered with the graph
+  (``CUDAGraph.register_generator_state``), so a replay draws what eager
+  dispatch draws from the generator's state at the call and advances it
+  as eager dispatch does; ``set_state`` between calls is honoured;
+* a frozen dataclass (a ``GaussianSum``): a constant the graph reads at
+  its tensors' addresses, as ``jax.jit`` bakes in a closed-over array.
+  The cache entry keeps the object, so its memory cannot be reused; a
+  call with another object (a dist assigned anew) captures anew;
+* anything else (callables, numbers, flags, strings, ``None``): part of
+  the key.
+
+A key is the arguments' structure, every tensor's shape, strides, the
+alignment of its first element, dtype and device (over another layout a
+kernel may sum in another order; the static buffers and the copies
+handed out are laid out as the tensors they stand for), every other
+leaf's value, and ``key()`` of the caller (the resample route, for a
+function that resamples): what makes ``jax.jit`` retrace. Another
+generator or constant object under the same key replaces the entry,
+which frees its graph and memory pool; the others live as long as the
+:class:`Graphed` object (a filter shell's, a scan loop's).
+
+A replay rewrites the graph's output tensors. With ``copy_out`` (the
+default) a call hands out clones, so a tensor a caller holds keeps its
+values after later calls, as a JAX array does; an output that is an input
+passed through is handed back as the caller's own tensor, uncopied.
+
+Inside :class:`disabled` every graphed function (or those it names)
+runs eagerly, one op at a time, as the reference's do under
+``jax.disable_jit()``: the eager side of a comparison.
+
+The kernel wrappers (:data:`KERNELS`) count launches in Python, where
+they enqueue: during a capture nothing reaches the card, so the counts a
+capture adds are taken back, kept as the graph's launches, and added at
+every replay.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+from typing import Any, Callable, Optional
+
+import torch
+
+from gpu_se_tpu_torch.ops import counter_draw as _cdraw
+from gpu_se_tpu_torch.ops import resample_coarse as _rc
+from gpu_se_tpu_torch.ops import resample_pallas3 as _rp3
+from gpu_se_tpu_torch.ops import resample_pallas4 as _rp4
+from gpu_se_tpu_torch.ops import resample_pallas_block as _rpb
+
+# every hand-written kernel's wrapper, each with a ``launches`` count
+KERNELS = (_rp4.compact, _rp4.expand, _rpb.ends_merge_round,
+           _rp3.cumsum_merge, _rc.coarse_gather, _cdraw.counter_draw)
+
+
+_DISABLED: list = []     # the open ``disabled`` contexts' sets, or None
+
+
+class disabled:
+    """Context manager: inside it the given graphed functions, or every
+    one if none is given, run eagerly."""
+
+    def __init__(self, *graphed: "Graphed"):
+        self.only = {id(g) for g in graphed} or None
+
+    def __enter__(self):
+        _DISABLED.append(self.only)
+
+    def __exit__(self, *exc):
+        _DISABLED.remove(self.only)
+
+
+def _disabled(g: "Graphed") -> bool:
+    return any(only is None or id(g) in only for only in _DISABLED)
+
+
+def _is_const(x) -> bool:
+    return (dataclasses.is_dataclass(x) and not isinstance(x, type)
+            and x.__dataclass_params__.frozen)
+
+
+def _flatten(tree, tensors: list, gens: list, consts: list):
+    """The key part of ``tree``; its tensors, generators and constants are
+    appended to the lists in walk order."""
+    if isinstance(tree, torch.Tensor):
+        tensors.append(tree)
+        return ("T", tuple(tree.shape), tree.stride(), _alignment(tree),
+                tree.dtype, tree.device)
+    if isinstance(tree, torch.Generator):
+        gens.append(tree)
+        return ("G", tree.device)
+    if _is_const(tree):
+        consts.append(tree)
+        return ("C", type(tree), tuple(
+            (tuple(v.shape), v.dtype, v.device) if isinstance(v, torch.Tensor)
+            else v for v in (getattr(tree, f.name)
+                             for f in dataclasses.fields(tree))))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return ("D", type(tree), tuple(
+            _flatten(getattr(tree, f.name), tensors, gens, consts)
+            for f in dataclasses.fields(tree) if f.init))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_flatten(c, tensors, gens, consts)
+                                  for c in tree))
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _flatten(tree[k], tensors, gens, consts))
+                            for k in sorted(tree)))
+    return ("V", tree)
+
+
+def _alignment(t: torch.Tensor) -> int:
+    """The first element's offset in 16-byte units of its storage, in
+    elements: kernels pick vectorized paths, and with them an order of
+    summation, by it."""
+    return (t.storage_offset() * t.element_size()) % 16 // t.element_size()
+
+
+def _like(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` laid out as ``t`` is: its size, strides and
+    alignment (``clone`` makes a strided view contiguous). A tensor with
+    a zero stride (expanded) is copied contiguous."""
+    if t.numel() == 0 or 0 in t.stride():
+        return t.clone()
+    extent = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    align = _alignment(t)
+    base = torch.empty(align + extent, dtype=t.dtype, device=t.device)
+    return base.as_strided(t.shape, t.stride(), align).copy_(t)
+
+
+def _map_tensors(tree, fn: Callable):
+    """``tree`` rebuilt with ``fn`` of each tensor outside its constants
+    (frozen dataclasses, kept as they are)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if _is_const(tree):
+        return tree
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_tensors(getattr(tree, f.name), fn)
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, (tuple, list)):
+        built = [_map_tensors(c, fn) for c in tree]
+        if hasattr(tree, "_fields"):          # a namedtuple
+            return type(tree)(*built)
+        return type(tree)(built)
+    if isinstance(tree, dict):
+        # in :func:`_flatten`'s order
+        return {k: _map_tensors(tree[k], fn) for k in sorted(tree)}
+    return tree
+
+
+def _substitute(tree, it):
+    """``tree`` with its tensors replaced, in walk order, by ``it``'s."""
+    return _map_tensors(tree, lambda _: next(it))
+
+
+@dataclasses.dataclass
+class Entry:
+    """One captured graph: its static inputs, the generators and constants
+    it was captured with, its output tree, the kernel launches of one
+    replay and its memory pool's size."""
+
+    graph: torch.cuda.CUDAGraph
+    static: list
+    gens: list
+    consts: list
+    out: Any
+    launches: dict
+    pool_bytes: int
+
+    def holds(self, gens: list, consts: list) -> bool:
+        return (len(gens) == len(self.gens)
+                and all(a is b for a, b in zip(gens, self.gens))
+                and all(a is b for a, b in zip(consts, self.consts)))
+
+
+# ----------------------------------------------------------------------
+# the card's side: the tests on the CPU put stand-ins in their place
+# ----------------------------------------------------------------------
+def on_card(dev: torch.device) -> bool:
+    """Whether tensors on ``dev`` are graphed (CUDA) or run directly."""
+    return dev.type == "cuda"
+
+
+def warm_up(fn: Callable, args, kwargs, dev):
+    """``fn`` run eagerly on a side stream; its result."""
+    side = torch.cuda.Stream(device=dev)
+    main = torch.cuda.current_stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn(*args, **kwargs)
+    main.wait_stream(side)
+    # the outputs were allocated on the side stream and are used on the
+    # caller's: the allocator waits for both before reusing them
+    _map_tensors(out, lambda t: t.record_stream(main))
+    return out
+
+
+def capture(fn: Callable, args, kwargs, gens: list, dev):
+    """``(graph, outputs, pool bytes)``: ``fn`` captured with the
+    generators ``gens`` registered; the pool's size is the card's reserved
+    memory grown by the capture.
+
+    Only this thread's calls can spoil the capture (``thread_local``):
+    another thread's CUDA calls (a process group's watchdog, a sampler)
+    go on. The cyclic garbage collector is held off during it, so no
+    finalizer of an earlier graph or stream runs inside the capture
+    (``torch.cuda.graph`` collects once before it begins)."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in gens:
+        graph.register_generator_state(gen)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(dev)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn(*args, **kwargs)
+    finally:
+        if collecting:
+            gc.enable()
+    return graph, out, torch.cuda.memory_reserved(dev) - before
+
+
+class Graphed:
+    """``fn`` captured once per key as a CUDA graph on the card and
+    replayed after (the module docstring says how arguments are read).
+
+    Parameters
+    ----------
+    fn : callable
+        A function of tensors; on the card it must not read the device
+        from the host (a sync breaks the capture, which raises).
+    key : callable, optional
+        Returns a hashable part of the key read at every call (the
+        resample route of ``filters/resampling.route``).
+    copy_out : bool
+        Hand out clones of the graph's outputs (default). Without it the
+        outputs are the graph's own tensors, rewritten by the next call.
+    """
+
+    def __init__(self, fn: Callable, key: Optional[Callable] = None,
+                 copy_out: bool = True):
+        self.fn = fn
+        self.key = key
+        self.copy_out = copy_out
+        self.entries: dict = {}
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, *args, **kwargs):
+        tensors, gens, consts = [], [], []
+        spec = _flatten((args, kwargs), tensors, gens, consts)
+        if _disabled(self) or not tensors or not on_card(tensors[0].device):
+            return self.fn(*args, **kwargs)
+        key = (spec, self.key() if self.key is not None else None)
+        entry = self.entries.get(key)
+        if entry is not None and not entry.holds(gens, consts):
+            del self.entries[key]          # frees the graph and its pool
+            entry = None
+        if entry is None:
+            out = warm_up(self.fn, args, kwargs, tensors[0].device)
+            self.entries[key] = self._capture(args, kwargs, tensors, gens,
+                                              consts)
+            return out
+        return self._replay(entry, tensors)
+
+    def _capture(self, args, kwargs, tensors, gens, consts) -> Entry:
+        static = [_like(t) for t in tensors]
+        s_args, s_kwargs = _substitute((args, kwargs), iter(static))
+        counts = [k.launches for k in KERNELS]
+        graph, out, pool = capture(self.fn, s_args, s_kwargs, gens,
+                                   tensors[0].device)
+        launches = {}
+        for k, c in zip(KERNELS, counts):
+            if k.launches != c:
+                launches[k] = k.launches - c
+                k.launches = c             # the capture launched nothing
+        self.captures += 1
+        return Entry(graph, static, list(gens), list(consts), out, launches,
+                     pool)
+
+    def _replay(self, entry: Entry, tensors: list):
+        for s, t in zip(entry.static, tensors):
+            s.copy_(t)
+        entry.graph.replay()
+        self.replays += 1
+        for k, c in entry.launches.items():
+            k.launches += c
+        if not self.copy_out:
+            return entry.out
+        passed = {id(s): t for s, t in zip(entry.static, tensors)}
+        return _map_tensors(entry.out,
+                            lambda o: passed.get(id(o)) if id(o) in passed
+                            else _like(o))
+
+    def pool_bytes(self) -> int:
+        """The memory pools of the graphs held, bytes (the card's reserved
+        memory grown by each capture)."""
+        return sum(e.pool_bytes for e in self.entries.values())

@@ -26,11 +26,16 @@ eager chain's launches) and the synchronise, and its device ms (CUDA
 events on the stream around the copy, the launch and the chain, the card
 only); a replay also records the graph's steps alone (events captured in
 the graph, ``graph_series_ms``); the card's SM clock is read by
-``nvidia-smi`` before and after the series.
+``nvidia-smi`` before and after the series, and the SM and memory
+clocks and the temperature by NVML before each rep.
 
 Usage: ``python -m gpu_se_tpu_torch.results.pacf_series`` (the card)
-prints the series' summary as one JSON line.
+prints the series' summary as one JSON line; ``--idle-gap-s 0.05``
+leaves the card idle 50 ms before each rep, a diagnostic series kept out
+of the series of record.
 """
+import argparse
+import ctypes
 import json
 import subprocess
 import time
@@ -38,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.filters import particle_tiled as pft
 from gpu_se_tpu_torch.models import bioreactor as bio
 from gpu_se_tpu_torch.results._filter_bench import (
@@ -67,42 +73,43 @@ def chain_steps(x, generator, k, u, z, dt, state_pdf, meas_pdf):
 
 
 class GraphedChain:
-    """The ``k``-step chain as one CUDA graph: ``replay(x)`` copies ``x``
-    into the static input and replays. The noise comes from a generator
-    seeded ``seed`` and registered with the graph
-    (``register_generator_state``), whose state each replay advances.
-    ``replays`` counts replays; the kernels' launch counters tick once a
-    step at the warm-up and at the capture only. Two timing events are
-    captured around the steps, on the capture stream, as event nodes of
-    the graph: :meth:`graph_ms` reads the last replay's steps alone, with
-    neither the input's copy nor the host's launch."""
+    """The ``k``-step chain as one CUDA graph (``gpu_se_tpu_torch.graphs``):
+    built by one warm-up chain and the capture, then ``replay(x)`` copies
+    ``x`` into the static input and replays. The noise comes from a
+    generator seeded ``seed`` and registered with the graph, whose state
+    each replay advances. ``replays`` counts replays; the kernels' launch
+    counters tick once a step at the warm-up and at every replay. Two
+    timing events are recorded around the steps, on the capture stream,
+    as event nodes of the graph: :meth:`graph_ms` reads the last replay's
+    steps alone, with neither the input's copy nor the host's launch."""
 
     def __init__(self, x, seed, k, u, z, dt, state_pdf, meas_pdf):
-        dev = x.device
-        self.graph = torch.cuda.CUDAGraph()
-        self.generator = torch.Generator(device=dev).manual_seed(seed)
-        self.graph.register_generator_state(self.generator)
-        self.static = x.clone()
-        body = (k, u, z, dt, state_pdf, meas_pdf)
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            chain_steps(self.static, self.generator, *body)
-        torch.cuda.current_stream(dev).wait_stream(side)
+        self.generator = torch.Generator(device=x.device).manual_seed(seed)
         self.begin, self.end = (
             torch.cuda.Event(enable_timing=True, external=True)
             for _ in range(2))
-        with torch.cuda.graph(self.graph):
-            self.begin.record()
-            self.out = chain_steps(self.static, self.generator, *body)
-            self.end.record()
-        self.replays = 0
+        body = (k, u, z, dt, state_pdf, meas_pdf)
+
+        def chain(x, generator):
+            # external events are recorded at the capture only (the
+            # warm-up's eager chain runs without them)
+            capturing = torch.cuda.is_current_stream_capturing()
+            if capturing:
+                self.begin.record()
+            out = chain_steps(x, generator, *body)
+            if capturing:
+                self.end.record()
+            return out
+
+        self.graphed = graphs.Graphed(chain, copy_out=False)
+        self.graphed(x, self.generator)
+
+    @property
+    def replays(self) -> int:
+        return self.graphed.replays
 
     def replay(self, x):
-        self.static.copy_(x)
-        self.graph.replay()
-        self.replays += 1
-        return self.out
+        return self.graphed(x, self.generator)
 
     def graph_ms(self) -> float:
         """The device ms of the last replay's steps; call after it has
@@ -133,6 +140,76 @@ def sm_clock_mhz():
         return None
 
 
+class CardSensors:
+    """The card's SM and memory clocks (MHz) and its temperature (C),
+    read through NVML (``libnvidia-ml``, the library ``nvidia-smi``
+    reads) in well under a millisecond, so between reps. Each reading is
+    None without a card or the library."""
+
+    FIELDS = ("sm_clock_mhz", "mem_clock_mhz", "temperature_c")
+
+    def __init__(self):
+        self._lib = self._dev = None
+        card = _card_id()
+        if card is None:
+            return
+        try:
+            lib = ctypes.CDLL("libnvidia-ml.so.1")
+        except OSError:
+            return
+        lib.nvmlInit_v2.argtypes = []
+        lib.nvmlShutdown.argtypes = []
+        lib.nvmlDeviceGetHandleByUUID.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)]
+        lib.nvmlDeviceGetClockInfo.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint)]
+        lib.nvmlDeviceGetTemperature.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint)]
+        for fn in (lib.nvmlInit_v2, lib.nvmlShutdown,
+                   lib.nvmlDeviceGetHandleByUUID, lib.nvmlDeviceGetClockInfo,
+                   lib.nvmlDeviceGetTemperature):
+            fn.restype = ctypes.c_int
+        if lib.nvmlInit_v2() != 0:
+            return
+        dev = ctypes.c_void_p()
+        if lib.nvmlDeviceGetHandleByUUID(card.encode(),
+                                         ctypes.byref(dev)) != 0:
+            lib.nvmlShutdown()
+            return
+        self._lib, self._dev = lib, dev
+
+    def read(self) -> dict:
+        """``{"sm_clock_mhz", "mem_clock_mhz", "temperature_c"}``."""
+        if self._lib is None:
+            return dict.fromkeys(self.FIELDS)
+        out = {}
+        # NVML_CLOCK_SM = 1, NVML_CLOCK_MEM = 2, NVML_TEMPERATURE_GPU = 0
+        for name, fn, kind in (
+                ("sm_clock_mhz", self._lib.nvmlDeviceGetClockInfo, 1),
+                ("mem_clock_mhz", self._lib.nvmlDeviceGetClockInfo, 2),
+                ("temperature_c", self._lib.nvmlDeviceGetTemperature, 0)):
+            v = ctypes.c_uint()
+            out[name] = (float(v.value)
+                         if fn(self._dev, kind, ctypes.byref(v)) == 0
+                         else None)
+        return out
+
+    def close(self) -> None:
+        if self._lib is not None:
+            self._lib.nvmlShutdown()
+            self._lib = self._dev = None
+
+
+def correlation(a, b):
+    """Pearson's r of two series, None where either is missing or
+    constant."""
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()) \
+            or a.std() == 0 or b.std() == 0:
+        return None
+    return float(np.corrcoef(a, b)[0, 1])
+
+
 def drift(series) -> float:
     """The median of the last :data:`DRIFT_REPS` reps over that of the
     first, minus one."""
@@ -141,14 +218,20 @@ def drift(series) -> float:
                  / np.median(series[:DRIFT_REPS]) - 1.0)
 
 
-def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
+def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None,
+                idle_gap_s=0.0):
     """Time ``reps`` synchronised chains of ``k`` tiled steps at ``n``
     particles after one warm-up chain; returns the series (host ms a
     rep, split into the launch and the synchronise, and device ms a rep
     on the card), its median, the time of an empty synchronise, max
-    |pacf|, the drift and the card's SM clock before and after.
+    |pacf|, the drift, the card's SM clock before and after, and beside
+    each rep the SM and memory clocks and the temperature read just
+    before it (:class:`CardSensors`), with each one's correlation with
+    the rep's own device time (the graph's, for a replay).
     ``graphed`` (default: ``gpu``) runs each rep as one graph replay;
-    ``gpu=False`` needs ``graphed`` false."""
+    ``gpu=False`` needs ``graphed`` false. ``idle_gap_s`` leaves the card
+    idle that long before each rep: a diagnostic, never the series of
+    record."""
     dev = get_device(gpu)
     graphed = gpu if graphed is None else graphed
     if graphed and not gpu:
@@ -179,10 +262,16 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
     null_ms = float(np.median(nulls))
 
     clock_before = sm_clock_mhz() if gpu else None
+    sensors = CardSensors() if gpu else None
+    readings = []
     series, device = np.empty(reps), np.full(reps, np.nan)
     graph = np.full(reps, np.nan)
     launch, sync = np.empty(reps), np.empty(reps)
     for i in range(reps):
+        if idle_gap_s:
+            time.sleep(idle_gap_s)
+        if sensors is not None:
+            readings.append(sensors.read())
         x = x_init + rep_offset(rng)
         _sync(x)
         if gpu:
@@ -204,6 +293,8 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
         if graphed:
             graph[i] = runner.graph_ms()
     clock_after = sm_clock_mhz() if gpu else None
+    if sensors is not None:
+        sensors.close()
     pacf = float(max_abs_pacf(series / 1e3))
     med = float(np.median(series))
     out = {
@@ -226,7 +317,17 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
         "launch_max_abs_pacf": float(max_abs_pacf(launch / 1e3)),
         "sync_max_abs_pacf": float(max_abs_pacf(sync / 1e3)),
         "sm_clock_mhz": {"before": clock_before, "after": clock_after},
+        "idle_gap_s": idle_gap_s,
     }
+    if gpu:
+        own = graph if graphed else device
+        out["sensor_series"] = {f: [r[f] for r in readings]
+                                for f in CardSensors.FIELDS}
+        out["correlation_with_own_ms"] = {
+            f: correlation(own, out["sensor_series"][f])
+            for f in CardSensors.FIELDS}
+        out["correlation_with_own_ms"]["rep"] = correlation(
+            own, np.arange(reps))
     if gpu:
         out.update(
             device_series_ms=device.tolist(),
@@ -244,4 +345,8 @@ def pacf_series(n=N, k=K, reps=REPS, gpu=True, graphed=None):
 
 
 if __name__ == "__main__":
-    print(json.dumps(pacf_series()))
+    ap = argparse.ArgumentParser(description="The pacf series of record, "
+                                             "or with --idle-gap-s a "
+                                             "diagnostic series")
+    ap.add_argument("--idle-gap-s", type=float, default=0.0)
+    print(json.dumps(pacf_series(idle_gap_s=ap.parse_args().idle_gap_s)))

@@ -7,7 +7,12 @@ take the place of the scan's ``lax.cond``s. The filter state, the plant,
 the input, the prediction and the warm start stay on the device; the
 choices that depend on the QP's status (the input, the prediction, the
 warm-start reset, ``have_pred``) are ``torch.where``s, so the only reads
-back to the host are the QP's one per check.
+back to the host are the QP's one per check. On the card the filter
+work runs as replays of CUDA graphs (``gpu_se_tpu_torch.graphs``),
+captured at the first run: the predict, the control event's update,
+resample and point estimate, and each step's point estimate. The MPC
+solve replays its QP's graphs of 25 iterations, one host read a check:
+a graph cannot hold the QP's data-dependent end.
 
 The plant and measurement noise is drawn up front from the caller's
 ``torch.Generator``, one state draw and one measurement draw a step. As
@@ -22,10 +27,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.control import mpc as mpc_mod
 from gpu_se_tpu_torch.control.qp import SOLVED
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
 from gpu_se_tpu_torch.filters import particle as pf_core
+from gpu_se_tpu_torch.filters import resampling
 from gpu_se_tpu_torch.models import bioreactor as bio
 
 
@@ -52,16 +59,6 @@ class LoopRecord(NamedTuple):
     status: torch.Tensor
 
 
-def _fork(state):
-    """``state`` with a generator of its own in the same position, so a
-    run leaves the caller's state as it was and two runs of one state
-    draw the same numbers (the reference's state holds an immutable
-    key)."""
-    gen = torch.Generator(device=state.generator.device)
-    gen.set_state(state.generator.get_state())
-    return dataclasses.replace(state, generator=gen)
-
-
 def make_scan_loop(
     mpc,
     lin_model,
@@ -81,7 +78,9 @@ def make_scan_loop(
     ``gpu_se_tpu_torch.filters.gs_ukf``: both expose the same functional
     predict/update/resample/point_estimate surface). ``generator`` is a
     ``torch.Generator`` on that device: the plant and measurement noise.
-    The records come back as stacked tensors, one row a step.
+    The records come back as stacked tensors, one row a step;
+    ``run.graphs`` holds the filter work's graphed functions
+    (``gpu_se_tpu_torch.graphs``).
     """
     core = filter_core if filter_core is not None else pf_core
 
@@ -111,9 +110,23 @@ def make_scan_loop(
     state_pdf = state_pdf.to(device)
     measurement_pdf = measurement_pdf.to(device)
 
+    def event(state, u, z, g, measurement_pdf):
+        state = core.resample(core.update(state, u, z, g, measurement_pdf))
+        return state, core.point_estimate(state)
+
+    predict_g = graphs.Graphed(core.predict)
+    event_g = graphs.Graphed(event, key=resampling.route)
+    estimate_g = graphs.Graphed(core.point_estimate)
+    # the filter's stream in each run: set to the caller's state's, so a
+    # run leaves the caller's state as it was and two runs of one state
+    # draw the same numbers (the reference's state holds an immutable
+    # key); one generator for every run, so the graphs stay valid
+    filter_gen = torch.Generator(device=device)
+
     def run(filter_state, x_plant, generator: torch.Generator) -> LoopRecord:
         n_steps = len(ts) - 1
-        state = _fork(filter_state)
+        filter_gen.set_state(filter_state.generator.get_state())
+        state = dataclasses.replace(filter_state, generator=filter_gen)
         x = dev(x_plant)
         u = fallback.clone()
         y_pred = torch.zeros(mpc.No, dtype=torch.float32, device=device)
@@ -127,7 +140,7 @@ def make_scan_loop(
         for i in range(n_steps):
             # --- filter predict (every dt_predict) ---
             if predict_mask[i]:
-                state = core.predict(state, u, dt_t, f, state_pdf)
+                state = predict_g(state, u, dt_t, f, state_pdf)
 
             # --- measurement of the current plant output ---
             z = bio.all_outputs(x)[out_idx] + meas_noise[i]
@@ -135,9 +148,7 @@ def make_scan_loop(
             # --- control event: update + resample + MPC ---
             status = solved
             if control_mask[i]:
-                state = core.update(state, u, z, g, measurement_pdf)
-                state = core.resample(state)
-                x_hat = core.point_estimate(state)
+                state, x_hat = event_g(state, u, z, g, measurement_pdf)
                 x0_dev = x_hat[state_sel] - x_bar
                 um1_dev = u[in_idx] - u_bar
                 bias = torch.where(have_pred, (z - y_bar) - y_pred,
@@ -158,8 +169,10 @@ def make_scan_loop(
             rec["us"].append(u)
             rec["xs"].append(x)
             rec["ys_meas"].append(z)
-            rec["xs_f"].append(core.point_estimate(state))
+            rec["xs_f"].append(estimate_g(state))
             rec["status"].append(status)
         return LoopRecord(**{k: torch.stack(v) for k, v in rec.items()})
 
+    run.graphs = {"predict": predict_g, "event": event_g,
+                  "estimate": estimate_g}
     return run, ts
