@@ -95,28 +95,49 @@ Phases, each of which raises on failure:
     honoured, ``compact`` and ``expand`` counted at every replay; 50
     chained calls graphed and eager timed by CUDA events, with the host
     ms a call, and each graph's memory pool; every capture or replay
-    that fails raises. (c) below also runs the scan loop eagerly
-    (its filter work under ``graphs.disabled``) and holds its records
-    equal to the graphed loop's;
+    that fails raises; then ``graph_cond`` alone (``ops/graph_cond``, the
+    conditional nodes of the QP's device loop): a WHILE node of 1000
+    iterations over a two-kernel body and an IF never taken, timed a
+    iteration against the same body driven from the host (a replay and a
+    read of the flag an iteration) and against the body's kernels
+    unrolled in one graph, its iterations counted on the card;
 12. the control slice, on the canonical rig's MPC at dt_control = 0.1
     (P = 2999, M = 1999: the reference's ``int(300 // 0.1)``; a QP of
     n = 4000, m = 2), one host setup for (a) to (c): the ``Simulation``
     of (b), built first, and the same MPC on the CPU, its setup time
-    printed. Between the phases the MPC is ``reset``:
+    printed. Every QP solve on the card is one graph whose ADMM loop is a
+    conditional WHILE node (``control/qp.py``). Between the phases the
+    MPC is ``reset``:
     (a) the no-noise closed loop of
-    ``results/bioreactor_closedloop/no_noise.py`` to t = 5: ``K.step``
+    ``results/bioreactor_closedloop/no_noise.py`` to t = 5: each solve
+    solved again from the same state under ``qp.host_driven()`` and held
+    to it bit for bit (statuses, iterations, x, y, z, residuals, the
+    carried rho and refactorization counts, the control), the WHILE
+    iterations counted on the card equal to the solves' chunks, one read
+    to the host a ``K.step`` (the profiler counts both ways); then
+    ``rig.QP_CASES`` the same way, three members each (a general Hessian
+    refactorizing its n x n K, a stall at a max_iter between checks, the
+    Woodbury path's stall refactorizing its m x m factor); ``K.step``
     latency (median and spread), solves per second, CUDA-event ms per
-    solve, iterations per solve, the steps accepted as near-solved and
+    solve and per stall both ways, iterations per solve, the steps
+    accepted as near-solved and
     those that raised ``ValueError`` (a stall at max_iter, which the
     reference's float32 ADMM shows on 8 of these 49 steps on the CPU:
     they fall back as in
     ``results/bioreactor_closedloop/mpc_run_seq.py``; the first step
-    raising, or more than 8, fails the run), five solves under
+    raising, or more than 8, fails the run), five solves again under
     ``torch.profiler``, and the first step against the same MPC on the
     CPU (within 1e-4);
     (b) ``Simulation`` with the particle filter at 2^20 particles to
     t = 5, (c) ``make_scan_loop`` at the same size from (b)'s initial
-    state, (d) ``Simulation`` with the GSUKF at 2^18 Gaussians to t = 2
+    state, one graph replay a time step (the predict, the measurement,
+    the control event with its solve and WHILE node, the plant): a first
+    run captures, the second runs its steps under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a read to the host
+    raises) with the host's enqueue timed against the card's time, and
+    its records must equal the capturing run's and the host-driven
+    loop's (the step eager, its QP under ``qp.host_driven()``) bit for
+    bit; (d) ``Simulation`` with the GSUKF at 2^18 Gaussians to t = 2
     (its own setup): ``compact`` and ``expand`` must launch once per
     control event (the resample), every output must be finite; ms per
     control event, ``mpc_frac`` and ``performance``; (e) ``MPC.step`` on
@@ -133,7 +154,9 @@ Phases, each of which raises on failure:
     stacked control with a gap under 1e-3, the independent solves
     (``make_scenario_solver``) within 1e-4 of single ``make_device_step``
     solves with no more rows unsolved than the reference's
-    ``REF_UNSOLVED``, and ``rig.binding_case()`` on the card against the
+    ``REF_UNSOLVED``, the consensus step's and the independent batched
+    solves bit-equal to the same under ``qp.host_driven()``, and
+    ``rig.binding_case()`` on the card against the
     CPU (the hedge above 1e-3, every scenario within 1e-3 of its bounds);
     the median ms of 10 calls of each; (g) ``RunSequences`` of the flat
     step (auto) at 2^16, 2^18 and 2^20, 50 runs each in chunks of 5,
@@ -230,7 +253,12 @@ TB/s, or its compare and add operations over 67 T/s (the H100's float32
 rate outside the tensor cores; the table has no int32 row), whichever is
 larger; a kernel timed under its bound fails the run. ``library_ms`` is ``counter_draw``'s ``torch.randn`` plus
 ``torch.rand`` of the same shape, and null for the resample kernels, whose
-functions no single PyTorch call computes. Kernels are timed by their
+functions no single PyTorch call computes, and for ``graph_cond``, whose
+loop no PyTorch call runs on the card. ``graph_cond``'s launches are the
+WHILE iterations of (a) and (c), counted on the card, its time one
+iteration of the timed loop, its plain time one iteration of that loop
+driven from the host, and its max_abs_err 0: every device-loop solve
+and record must equal the host-driven loop's. Kernels are timed by their
 device time under ``torch.profiler``;
 a kernel that updates its state in place gets a fresh state per call,
 made before the timed calls.
@@ -276,6 +304,7 @@ from gpu_se_tpu_torch.filters import resampling as rs  # noqa: E402
 from gpu_se_tpu_torch.models import bioreactor as bio  # noqa: E402
 from gpu_se_tpu_torch.ops import _build  # noqa: E402
 from gpu_se_tpu_torch.ops import counter_draw as cdraw  # noqa: E402
+from gpu_se_tpu_torch.ops import graph_cond  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_coarse as rc  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas2 as rp2  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas3 as rp3  # noqa: E402
@@ -436,6 +465,8 @@ ROUTE_KERNELS = {"auto": ("compact", "expand"),
 EXACT_ROUTES = ("auto", "ends", "coarse")
 # launches of each kernel summed over the paths (expect_counts)
 TALLY = {name: 0 for name in KERNELS}
+# graph_cond's WHILE iterations counted on the card in each QP path
+TALLY_COND: list = []
 
 
 def zero_counts() -> None:
@@ -2180,13 +2211,61 @@ def control_setup(dev, seed: int, card: str):
     return s, K_cpu, setup_s
 
 
+QP_FIELDS = [f.name for f in dataclasses.fields(cqp.QPSolution)]
+
+
+def same_solution(path: str, got, want) -> None:
+    """Fail unless two ``QPSolution``s are equal bit for bit."""
+    for name in QP_FIELDS:
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"{path}: {name} of the device loop differs "
+                                 f"from the host-driven loop's")
+
+
+def cond_count() -> int:
+    """``graph_cond``'s launches since the last zeroing: the WHILE
+    iterations, counted on the card by the kernel that sets the loop's
+    handle (reading or zeroing the count waits for the card)."""
+    return graph_cond.iterations(torch.device("cuda"))
+
+
+def zero_cond_count() -> None:
+    graph_cond.reset_iterations(torch.device("cuda"))
+
+
+def timed_mpc_step(K, args, host: bool):
+    """``K.step(*args)`` through the device loop, or the host-driven loop
+    where ``host``: ``(u or None where it raised, CUDA-event ms)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with cqp.host_driven() if host else contextlib.nullcontext():
+        try:
+            u = K.step(*args)
+        except ValueError:
+            u = None
+    end.record()
+    end.synchronize()
+    return u, start.elapsed_time(end)
+
+
 def phase_mpc(s, K_cpu, card: str) -> dict:
     """(a) The no-noise closed loop of
     ``results/bioreactor_closedloop/no_noise.py`` on the canonical MPC
     (P=2999, M=1999) for ``LOOP_END`` time units: ``K.step`` latency,
-    solves per second, CUDA-event ms per solve, iterations per solve,
-    near-solved acceptances, and the first step against the same MPC's
-    solve on the CPU.
+    solves per second, CUDA-event ms per solve and per stall, iterations
+    per solve, near-solved acceptances, and the first step against the
+    same MPC's solve on the CPU.
+
+    Each solve is one graph whose ADMM loop is a conditional WHILE node
+    (``control/qp.py``); each is solved again from the same state under
+    ``qp.host_driven()`` (the same parts, the loop driven by one read a
+    chunk) and must equal it bit for bit (statuses, iterations, x, y, z,
+    residuals, rho and refactorizations); the WHILE iterations counted
+    on the card must be the solves' chunks. Host reads a solve are
+    counted by the profiler both ways. Then ``rig.QP_CASES`` (a general
+    Hessian refactorizing its n x n K, a stall at a max_iter between
+    checks, the Woodbury path's stall) the same way, batched.
 
     At these tolerances (1e-6) the float32 ADMM stalls at max_iter on
     some steps of this loop, the reference's as well: a step that raises
@@ -2203,45 +2282,57 @@ def phase_mpc(s, K_cpu, card: str) -> dict:
     dt = ts[1]
     plant = Bioreactor(s.bioreactor.X.copy(), high_N=False)
     us, xs, ys = [np.array([0.06, 0.2])], [plant.X.copy()], [plant.outputs(None)]
-    lat, ev_ms, iters, status, raised = [], [], [], [], []
+    lat, ev_ms, host_ms, iters, status, raised = [], [], [], [], [], []
+    refactors, chunks = 0, 0
     t_next = 0.0
-    first_args = None
-    # the profiler watches PROFILED solves of the loop, which are left out
-    # of the latency figures
-    n_solves = int(sim_loop.event_masks(ts, DT_CONTROL, DT_CONTROL)[1].sum())
-    first = min(10, n_solves // 2)
-    profiled = range(first, min(first + 5, n_solves))
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    steps = []              # each solve's arguments and the MPC's state
+    ce = K.qp.settings.check_every
+
+    def state():
+        return K.y_predicted, K._warm_v, K._warm_y
+
+    def set_state(st):
+        K.y_predicted, K._warm_v, K._warm_y = st
+
+    zero_counts()
+    zero_cond_count()
     for t in ts[1:]:
         if t > t_next:
             args = (lin.xn2d(xs[-1]), lin.un2d(us[-1]), lin.yn2d(ys[-1]))
-            first_args = first_args or args
             i = len(iters)
-            if i == profiled.start:
-                torch.cuda.synchronize()
-                prof.start()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+            before = state()
+            steps.append((args, before))
             t0 = time.perf_counter()
-            start.record()
-            try:
-                u = K.step(*args)
-            except ValueError:
+            u, ms = timed_mpc_step(K, args, host=False)
+            step_s = time.perf_counter() - t0
+            dev_sol, after = K.last_solution, state()
+            loop = cqp._card_loop(K.qp.consts, 1, K.qp.settings,
+                                  K.qp.settings.dtype, K.qp.device)
+            rho, refac = loop.rho.clone(), loop.refactors.clone()
+            # the same solve with its loop driven from the host
+            set_state(before)
+            u_host, ms_host = timed_mpc_step(K, args, host=True)
+            same_solution(f"MPC (a) step {i}", dev_sol, K.last_solution)
+            if not (torch.equal(rho, loop.rho)
+                    and torch.equal(refac, loop.refactors)):
+                raise AssertionError(f"MPC (a) step {i}: rho schedule differs")
+            if (u is None) != (u_host is None) or (
+                    u is not None and not np.array_equal(u, u_host)):
+                raise AssertionError(f"MPC (a) step {i}: control differs")
+            set_state(after)
+            K.last_solution = dev_sol
+            if u is None:
                 if i == 0:
-                    raise
+                    raise AssertionError("MPC (a): the first step raised")
                 u = np.array([0.06, 0.2]) - lin.u_bar
                 raised.append(i)
-            end.record()
-            step_s = time.perf_counter() - t0
-            end.synchronize()
-            if i == profiled.stop - 1:
-                torch.cuda.synchronize()
-                prof.stop()
-            if i not in profiled:
-                lat.append(step_s)
-                ev_ms.append(start.elapsed_time(end))
-            iters.append(int(K.last_solution.iterations))
-            status.append(int(K.last_solution.status))
+            lat.append(step_s)
+            ev_ms.append(ms)
+            host_ms.append(ms_host)
+            iters.append(int(dev_sol.iterations))
+            status.append(int(dev_sol.status))
+            refactors += int(refac)
+            chunks += iters[-1] // ce
             u_temp = us[-1].copy()
             u_temp[lin.inputs] = lin.ud2n(u)
             us.append(u_temp)
@@ -2251,6 +2342,13 @@ def phase_mpc(s, K_cpu, card: str) -> dict:
         plant.step(dt, us[-1])
         ys.append(plant.outputs(us[-1]))
         xs.append(plant.X.copy())
+    torch.cuda.synchronize()
+    whiles = cond_count()
+    if whiles != chunks:
+        raise AssertionError(f"MPC (a): {whiles} WHILE iterations counted on "
+                             f"the card, the solves ran {chunks} chunks")
+    expect_counts("MPC (a)", read_counts(), {})
+    TALLY_COND.append(whiles)
     us, ys = np.array(us), np.array(ys)
     if not (np.isfinite(us).all() and np.isfinite(ys).all()):
         raise AssertionError("MPC loop: non-finite inputs or outputs")
@@ -2262,6 +2360,28 @@ def phase_mpc(s, K_cpu, card: str) -> dict:
         raise AssertionError(f"MPC loop: {len(raised)} of {len(status)} "
                              f"steps raised ValueError, the reference's "
                              f"{REF_RAISED}")
+    stall = [j for j, it in enumerate(iters) if it >= K.qp.settings.max_iter]
+    ev, hv = np.array(ev_ms), np.array(host_ms)
+
+    # host reads of one solve each way, and five solves under the profiler
+    first_args, first_state = steps[0]
+    reads = {}
+    for host in (False, True):
+        set_state(first_state)
+        reads[host] = host_reads(
+            lambda: timed_mpc_step(K, first_args, host))[0]
+    if reads[False] != 1:
+        raise AssertionError(f"MPC (a): {reads[False]} reads to the host in "
+                             f"a device-loop MPC.step, not 1")
+    first = min(10, len(steps) // 2)
+    profiled = steps[first:first + 5]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args, st in profiled:
+            set_state(st)
+            timed_mpc_step(K, args, host=False)
+        torch.cuda.synchronize()
 
     # the first step on the card against the same MPC on the CPU
     K.reset()
@@ -2271,6 +2391,7 @@ def phase_mpc(s, K_cpu, card: str) -> dict:
     err = float(np.abs(got - want).max() / np.abs(want).max())
     if err > 1e-4:
         raise AssertionError(f"MPC first step: card {got} vs CPU {want}")
+    cases = qp_cases(K.qp.device, card)
 
     busy, span, ops, _ = busy_ms(prof)
     n_prof = len(profiled)
@@ -2281,29 +2402,169 @@ def phase_mpc(s, K_cpu, card: str) -> dict:
         "step_ms_p10": float(np.percentile(lat_ms, 10)),
         "step_ms_p90": float(np.percentile(lat_ms, 90)),
         "step_ms_max": float(lat_ms.max()),
-        "event_ms_per_solve": float(np.median(ev_ms)),
+        "event_ms_per_solve": float(np.median(ev)),
+        "host_driven_event_ms_per_solve": float(np.median(hv)),
+        "event_ms_per_stall": float(ev[stall].mean()) if stall else None,
+        "host_driven_event_ms_per_stall": (float(hv[stall].mean())
+                                           if stall else None),
+        "stalls": len(stall), "while_iterations": whiles,
+        "refactorizations": refactors,
+        "host_reads_per_solve": reads[False],
+        "host_driven_host_reads_per_solve": reads[True],
         "iterations_median": float(np.median(iters)),
         "iterations_max": int(max(iters)), "near_solved": int(near),
         "raised": len(raised),
         "profiled_busy_ms_per_solve": busy / n_prof,
         "profiled_ops_per_solve": ops / n_prof,
-        "card": card,
+        "qp_cases": cases, "card": card,
     }
-    log(f"MPC (a): no-noise loop to t={LOOP_END}, {len(lat)} solves, "
-        f"K.step {metric['step_ms_median']:.3f} ms median (p10 "
+    log(f"MPC (a): no-noise loop to t={LOOP_END}, {len(lat)} solves, each a "
+        f"graph with a WHILE node, bit-equal to the host-driven loop (rho "
+        f"too; {refactors} refactorizations, {whiles} WHILE iterations = "
+        f"chunks); K.step {metric['step_ms_median']:.3f} ms median (p10 "
         f"{metric['step_ms_p10']:.3f}, p90 {metric['step_ms_p90']:.3f}, max "
         f"{metric['step_ms_max']:.3f}), {metric['value']:.1f} solves/s; "
-        f"CUDA events {metric['event_ms_per_solve']:.3f} ms/solve; "
+        f"CUDA events {metric['event_ms_per_solve']:.3f} ms/solve (host-"
+        f"driven {metric['host_driven_event_ms_per_solve']:.3f}), "
+        f"{len(stall)} stalls {metric['event_ms_per_stall']} ms each "
+        f"(host-driven {metric['host_driven_event_ms_per_stall']}); host "
+        f"reads a solve {reads[False]} (host-driven {reads[True]}); "
         f"iterations median {metric['iterations_median']:.0f}, max "
         f"{metric['iterations_max']}; near-solved {near}, raised "
         f"ValueError {len(raised)} (steps {raised}) of {len(status)}, the "
         f"reference {REF_RAISED}; performance {perf:.6g} ({card})")
-    log(f"MPC (a): solves {profiled.start}-{profiled.stop - 1} of the loop "
+    log(f"MPC (a): solves {first}-{first + n_prof - 1} of the loop again "
         f"under the profiler: {ops / n_prof:.1f} device ops, busy "
         f"{busy / n_prof:.4f} of span {span / n_prof:.4f} ms per step; first "
         f"step card {got.tolist()} vs CPU {want.tolist()} (rel err "
         f"{err:.2e})")
     return metric
+
+
+COND_ITERS = 1000          # WHILE iterations of the timed loop
+COND_SOURCE = "gpu_se_tpu_torch/csrc/graph_cond.cu"
+COND_REPLACES = ("none (port-only): the lax.while_loop and lax.cond of the "
+                 "QP solve, gpu_se_tpu/control/qp.py:404-489")
+
+
+def kept_graph(fn, dev):
+    """``fn`` run once, then captured as a graph kept for a conditional
+    node's body."""
+    graphs.warm_up(fn, (), {}, dev)
+    return graphs.capture(fn, (), {}, [], dev, keep_graph=True)[0]
+
+
+def phase_graph_cond(dev, card: str):
+    """``graph_cond`` alone: a WHILE node of ``COND_ITERS`` iterations
+    whose body is a kept graph of two one-element kernels (count, compare)
+    and an IF never taken, timed by CUDA events against the same body
+    replayed from the host with a read of the flag each iteration (the
+    host-driven loop) and against the body's kernels captured ``COND_ITERS``
+    times in one graph with no node (what the nodes add). Each loop must
+    count to ``COND_ITERS`` and the card's count add its iterations.
+    Returns ``(ms, plain_ms, (bound ms, by), metric)``, each a WHILE
+    iteration."""
+    graph_cond.prepare(dev)
+    n, sink = (torch.zeros((), dtype=torch.int32, device=dev)
+               for _ in range(2))
+    go, never = (torch.zeros((), dtype=torch.bool, device=dev)
+                 for _ in range(2))
+
+    def body():
+        n.add_(1)
+        go.copy_(n < COND_ITERS)
+
+    parts = [kept_graph(body, dev), kept_graph(lambda: sink.add_(1), dev)]
+    sink.zero_()                   # the IF's part ran once, eagerly
+
+    def looped():
+        n.zero_()
+        graph_cond.while_loop(go, [parts[0], graph_cond.If(never,
+                                                           (parts[1],))])
+
+    def unrolled():
+        n.zero_()
+        for _ in range(COND_ITERS):
+            body()
+
+    g_loop = graphs.capture(looped, (), {}, [], dev)[0]
+    g_flat = graphs.capture(unrolled, (), {}, [], dev)[0]
+
+    def host_loop():
+        n.zero_()
+        parts[0].replay()
+        while go.item():
+            parts[0].replay()
+
+    zero_cond_count()
+    loop_ms = time_ms(g_loop.replay, reps=10)
+    counted = cond_count()
+    if counted != 13 * COND_ITERS or int(n) != COND_ITERS or int(sink) != 0:
+        raise AssertionError(f"graph_cond: {counted} iterations "
+                             f"counted, n {int(n)}, the IF taken "
+                             f"{int(sink)} times")
+    flat_ms = time_ms(g_flat.replay, reps=10)
+    host_ms = time_ms(host_loop, reps=3)
+    if int(n) != COND_ITERS:
+        raise AssertionError("graph_cond: the host-driven loop miscounted")
+    per = {k: v / COND_ITERS for k, v in (("while", loop_ms),
+                                          ("unrolled", flat_ms),
+                                          ("host", host_ms))}
+    # a WHILE iteration reads its flag (1 byte) and adds to the count
+    # (8 bytes read and written); the IF's set kernel reads its flag
+    bound = least_time(1 + 16 + 1, 0)
+    metric = {"iterations": COND_ITERS,
+              "ms_per_iteration": per["while"],
+              "unrolled_ms_per_iteration": per["unrolled"],
+              "host_driven_ms_per_iteration": per["host"],
+              "node_overhead_ms_per_iteration":
+                  per["while"] - per["unrolled"], "card": card}
+    log(f"graph_cond: a WHILE of {COND_ITERS} iterations (body: a kept "
+        f"graph of 2 kernels, an IF not taken) {per['while'] * 1e3:.3f} us "
+        f"an iteration; the body's kernels unrolled in one graph "
+        f"{per['unrolled'] * 1e3:.3f} us, so the nodes add "
+        f"{metric['node_overhead_ms_per_iteration'] * 1e3:.3f} us; the "
+        f"host-driven loop (replay, read) {per['host'] * 1e3:.3f} us; "
+        f"bound {bound[0] * 1e3:.6f} us ({bound[1]}) ({card})")
+    return per["while"], per["host"], bound, metric
+
+
+def qp_cases(dev, card: str) -> dict:
+    """``rig.QP_CASES`` on the card, three members each: the device loop
+    against the host-driven loop bit for bit, rho and refactorizations
+    too; the general Hessian refactorizes its n x n K, the Woodbury path
+    its m x m factor."""
+    out = {}
+    for name, (make, settings, status, at_least) in rig.QP_CASES.items():
+        P, A, q, l, u = make()
+        port = cqp.DenseQP(P, A, l, u, q, settings=cqp.QPSettings(**settings),
+                           device=dev)
+        qs = np.stack([q, 0.5 * q, -q])
+        ls, us = np.stack([l] * 3), np.stack([u] * 3)
+        port.solve_batch(qs, ls, us)               # builds the loop
+        loop = cqp._card_loop(port.consts, 3, port.settings, torch.float32,
+                              dev)
+        got = []
+        for host in (False, True):
+            with cqp.host_driven() if host else contextlib.nullcontext():
+                sol = port.solve_batch(qs, ls, us)
+            got.append((sol, loop.rho.clone(), loop.refactors.clone()))
+        (sol, rho, ref), (h_sol, h_rho, h_ref) = got
+        same_solution(f"QP case {name}", sol, h_sol)
+        if not (torch.equal(rho, h_rho) and torch.equal(ref, h_ref)):
+            raise AssertionError(f"QP case {name}: rho schedule differs")
+        if int(ref.max()) < at_least:
+            raise AssertionError(f"QP case {name}: no refactorization")
+        out[name] = {"status": sol.status.tolist(),
+                     "iterations": sol.iterations.tolist(),
+                     "refactorizations": ref.tolist(),
+                     "identity_hessian": port.settings.identity_hessian}
+        log(f"QP case {name} (n={port.n}, m={port.m}, identity Hessian "
+            f"{port.settings.identity_hessian}): statuses "
+            f"{sol.status.tolist()}, iterations {sol.iterations.tolist()}, "
+            f"refactorizations {ref.tolist()}; device loop bit-equal to "
+            f"the host-driven loop ({card})")
+    return out
 
 
 def loop_counts(path: str, events: int) -> None:
@@ -2353,36 +2614,69 @@ def phase_closed_loop(s, card: str):
 def phase_scan_loop(dev, s, state0, x0, card: str, seed: int) -> dict:
     """(c) ``make_scan_loop`` at 2^20 particles on the P=3000 MPC, from
     (b)'s initial filter and plant state: the filter, plant, input and
-    warm start on the card."""
+    warm start on the card, each time step one replay of a graph that
+    holds the MPC's solve with its WHILE node.
+
+    The first run captures the step's graphs (one a pair of event masks);
+    the second runs its steps under ``torch.cuda.set_sync_debug_mode(
+    "error")``, so any read to the host raises, and times the host's
+    enqueue of the steps against the card's time for them (CUDA events).
+    The host-driven loop (the step eager, ``graphs.disabled``, its QP
+    under ``qp.host_driven()``) must give the same records bit for bit."""
     K, lin = s.K, s.lin_model
     state_pdf, meas_pdf = harness.get_noise(device=dev)
     run, ts = sim_loop.make_scan_loop(
         K, lin, state_pdf.dist, meas_pdf.dist, end_time=LOOP_END,
         dt_control=DT_CONTROL, dt_predict=DT_CONTROL)
     events = int(sim_loop.event_masks(ts, DT_CONTROL, DT_CONTROL)[1].sum())
+    step_g = run.graphs["step"]
 
-    def timed_run():
+    def timed_run(path: str, host: bool = False, sync_error: bool = False):
         gen = torch.Generator(device=dev).manual_seed(seed + 7)
         torch.cuda.synchronize()
         zero_counts()
+        zero_cond_count()
         t0 = time.perf_counter()
-        rec = run(state0, x0, gen)
+        carry, noise = run.start(state0, x0, gen)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        return rec, time.perf_counter() - t0
+        t_steps = time.perf_counter()
+        start.record()
+        if host:
+            with cqp.host_driven(), graphs.disabled(step_g):
+                rec = run.steps(carry, noise)
+        else:
+            torch.cuda.set_sync_debug_mode("error" if sync_error else 0)
+            try:
+                rec = run.steps(carry, noise)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        end.record()
+        enqueue_s = time.perf_counter() - t_steps
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        loop_counts(path, events)
+        whiles = cond_count()
+        if not host and whiles < events:
+            raise AssertionError(f"{path}: {whiles} WHILE iterations for "
+                                 f"{events} solves")
+        return rec, wall, enqueue_s * 1e3, start.elapsed_time(end), whiles
 
-    # (k): the loop with its filter work eager (the QP's chunks replayed
-    # from the graphs (a) and (b) captured, as before the filter's
-    # graphs), then graphed (the filter's three captures in it), from
-    # one seed
-    with graphs.disabled(*run.graphs.values()):
-        rec_eager, wall_eager = timed_run()
-    loop_counts("scan loop (PF), eager", events)
-    rec, wall = timed_run()
-    loop_counts("scan loop (PF)", events)
+    rec_c, wall_c, _, _, whiles_c = timed_run("scan loop (PF), captures")
+    captures = step_g.captures
+    rec, wall, enq_ms, dev_ms, whiles = timed_run("scan loop (PF)",
+                                                  sync_error=True)
+    if step_g.captures != captures or step_g.replays < len(ts) - 1:
+        raise AssertionError("scan loop: the second run captured anew")
+    TALLY_COND.append(whiles)
+    rec_h, wall_h, _, dev_ms_h, _ = timed_run("scan loop (PF), host-driven",
+                                              host=True)
     for name in rec._fields:
-        if not torch.equal(getattr(rec, name), getattr(rec_eager, name)):
-            raise AssertionError(f"(k) scan loop: graphed {name} differ from "
-                                 f"the eager loop's")
+        for other, what in ((rec_h, "host-driven"), (rec_c, "capturing")):
+            if not torch.equal(getattr(rec, name), getattr(other, name)):
+                raise AssertionError(f"(c) scan loop: {name} differ from the "
+                                     f"{what} loop's")
     for name in rec._fields:
         t_ = getattr(rec, name)
         if t_.device != dev or not torch.isfinite(t_.float()).all():
@@ -2394,16 +2688,26 @@ def phase_scan_loop(dev, s, state0, x0, card: str, seed: int) -> dict:
     if np.abs(us - np.array([0.06, 0.2])).max() <= 1e-4:
         raise AssertionError("scan loop: the controller never moved u")
     ms = wall / events * 1e3
-    ms_eager = wall_eager / events * 1e3
+    metric = {
+        "ms_per_control_event": ms,
+        "ms_per_control_event_host_driven": wall_h / events * 1e3,
+        "ms_per_control_event_capturing": wall_c / events * 1e3,
+        "steps_device_ms": dev_ms, "steps_enqueue_ms": enq_ms,
+        "steps_device_ms_host_driven": dev_ms_h,
+        "step_graphs": captures, "while_iterations": whiles,
+        "solved_share": solved, "events": events}
     log(f"scan loop (c): make_scan_loop, PF at n={N}, MPC P={K.P}: "
-        f"{events} control events in {wall:.3f} s, {ms:.3f} ms per control "
-        f"event with graphed filter work (its three captures in it), "
-        f"{ms_eager:.3f} with it eager; records equal; solved "
-        f"share {solved:.3f}; final x "
+        f"{events} control events, {len(ts) - 1} steps, one replay each "
+        f"({captures} step graphs, {whiles} WHILE iterations), no host sync "
+        f"(sync debug mode error): {wall:.3f} s, {ms:.3f} ms per control "
+        f"event; the steps' enqueue {enq_ms:.3f} ms against the card's "
+        f"{dev_ms:.3f} ms; host-driven {wall_h / events * 1e3:.3f} ms per "
+        f"event (card {dev_ms_h:.3f} ms), with the captures "
+        f"{wall_c / events * 1e3:.3f}; records "
+        f"bit-equal; solved share {solved:.3f}; final x "
         f"{[round(v, 4) for v in rec.xs[-1].tolist()]}, estimate "
         f"{[round(v, 4) for v in rec.xs_f[-1].tolist()]} ({card})")
-    return {"ms_per_control_event": ms, "ms_per_control_event_eager":
-            ms_eager, "solved_share": solved, "events": events}
+    return metric
 
 
 def phase_gsukf_loop(dev, card: str, seed: int) -> dict:
@@ -2540,6 +2844,11 @@ def phase_scenario(dev, card: str):
     step = make_consensus_scenario_step(settings, dims, n_outer=40)
     cons_ms, (cons, gap, worst) = median_ms(
         lambda: step(consts, t32(x0s), t32(um1), t32(biases)))
+    with cqp.host_driven():
+        held = step(consts, t32(x0s), t32(um1), t32(biases))
+    if not all(torch.equal(a, b) for a, b in zip((cons, gap, worst), held)):
+        raise AssertionError("consensus: the device loop's batched solves "
+                             "differ from the host-driven loop's")
     cons = cons.cpu().numpy().astype(float)
     cons_err = float(np.abs(cons - ctrl).max())
     if int(worst) != cqp.SOLVED or float(gap) >= 1e-3 or cons_err > 2e-3:
@@ -2554,6 +2863,11 @@ def phase_scenario(dev, card: str):
     um1s = np.tile(um1, (S, 1))
     solo_ms, (ctrls, preds, st) = median_ms(
         lambda: solve(t32(x0s), t32(um1s), t32(biases)))
+    with cqp.host_driven():
+        held = solve(t32(x0s), t32(um1s), t32(biases))
+    if not all(torch.equal(a, b) for a, b in zip((ctrls, preds, st), held)):
+        raise AssertionError("independent solves: the device loop differs "
+                             "from the host-driven loop")
     unsolved = [i for i, v in enumerate(st.tolist()) if v != cqp.SOLVED]
     if len(unsolved) > REF_UNSOLVED or any(
             st[i] != cqp.MAX_ITER_REACHED for i in unsolved):
@@ -3710,6 +4024,9 @@ def main() -> int:
     errs["expand"] = max(errs["expand"], v2_err)
     gsukf_metric = phase_gsukf(dev, args.seed, card)
     graph_metric = phase_graphs(dev, args.seed, card)
+    cond_ms, cond_plain_ms, cond_bound, cond_metric = phase_graph_cond(
+        dev, card)
+    graph_metric["graph_cond"] = cond_metric
     sim_b, K_cpu, setup_s = control_setup(dev, args.seed, card)
     mpc_metric = phase_mpc(sim_b, K_cpu, card)
     mpc_metric["host_setup_s"] = setup_s
@@ -3746,6 +4063,21 @@ def main() -> int:
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": library.get(name),
     } for name, (source, replaces, _) in KERNELS.items()]
+    # graph_cond: a WHILE iteration; its plain version the host-driven
+    # loop's iteration; every device-loop solve and record bit-equal to
+    # the host-driven loop's (else the run failed); no PyTorch call runs
+    # a loop on the card
+    if cond_ms < cond_bound[0]:
+        raise AssertionError("graph_cond: under its bound")
+    kernels.append({
+        "name": "graph_cond", "route": "cuda", "source": COND_SOURCE,
+        "replaces": COND_REPLACES, "launches": sum(TALLY_COND),
+        "max_abs_err": 0.0, "ms": cond_ms, "plain_ms": cond_plain_ms,
+        "bound_ms": cond_bound[0], "bound_by": cond_bound[1],
+        "library_ms": None})
+    if not all(TALLY_COND):
+        raise AssertionError(f"graph_cond: a QP path ran no WHILE "
+                             f"iteration ({TALLY_COND})")
     log(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s in all, "
         f"the build included ({card})")
     print(json.dumps({"kernels": kernels}))

@@ -10,14 +10,27 @@ Hessian, the m x m Woodbury factor) runs once in float64 numpy, as the
 reference's; only ``q``, ``l``, ``u`` and the warm start change per solve.
 
 The reference's solve is one ``lax.while_loop`` with a ``lax.cond`` every
-``check_every`` iterations. Here the loop runs on the constants' device
-in chunks of ``check_every`` iterations: no value is read back inside a
-chunk, and after each check one small transfer says whether any member
-is still running and whether any needs a new rho. On CUDA a chunk is
-replayed from a CUDA graph, captured at the first solve of a batch size
-and cached on the constants; the check runs eagerly. The adaptive-rho
-refactorization is computed for every member when any needs it and kept
-per member by ``torch.where``; its inverse is ``torch.linalg.inv_ex``,
+``check_every`` iterations (``gpu_se_tpu/control/qp.py:404-489``). Here
+the solve is split into parts that act in place on a carry
+(:class:`_Loop`): a chunk of ``check_every`` iterations ending in the
+check, which leaves two flags on the device (any member still running
+with a whole chunk left, any member to refactorize), the adaptive-rho
+refactorization, and the iterations after the last check. On the CPU a
+Python loop drives the parts, reading the flags once a chunk. On CUDA
+each part is captured once as a CUDA graph, cached on the constants by
+batch size and settings, and a solve is one graph: the scaling and warm
+start, a conditional WHILE node whose body runs the chunk and, under a
+nested IF node, the refactorization, an IF node over the tail, and the
+final check (``ops/graph_cond``): nothing is read back to the host.
+Called inside a caller's capture it joins it, loop and all. Inside
+:func:`host_driven` the card's solve is driven from the host instead:
+the same parts' graphs in the same order, so the same bits, the
+comparison's other side; under ``graphs.disabled()`` the parts run
+eagerly from the host, as ``lax.while_loop`` runs from Python under
+``jax.disable_jit()``. A solve that cannot be built or captured raises:
+nothing falls back to the host. The refactorization is computed
+for every member when any needs it and kept per member by
+``torch.where``; its inverse is ``torch.linalg.inv_ex`` through cuSOLVER,
 which does not wait for the card to report an error.
 
 Every solve is batched: ``solve`` is a batch of one, and the matrix
@@ -39,6 +52,7 @@ import numpy as np
 import torch
 
 from gpu_se_tpu_torch import graphs
+from gpu_se_tpu_torch.ops import graph_cond
 from gpu_se_tpu_torch.ops.smallmat import _sqrt
 
 # Status codes (OSQP-compatible naming)
@@ -73,9 +87,11 @@ class QPSettings:
     dtype: torch.dtype = torch.float32
 
 
-@dataclass
+@dataclass(frozen=True, eq=False)
 class QPConstants:
-    """Device-resident constants for a fixed (P, A) pair."""
+    """Device-resident constants for a fixed (P, A) pair; a graph reads
+    them at their addresses (``graphs``), and the solve's device loops are
+    cached on them."""
 
     P_s: torch.Tensor  # scaled P (n, n); (0, 0) dummy in identity mode
     A_s: torch.Tensor  # scaled A (m, n)
@@ -287,20 +303,44 @@ def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.bmm(M, v.unsqueeze(-1)).squeeze(-1)
 
 
-def _graphed(c: QPConstants, key, fn, args: dict):
-    """``fn(**args)`` as a CUDA graph (``gpu_se_tpu_torch.graphs``) cached
-    on ``c`` under ``key``: run at the first call, then captured; later
-    calls copy ``args`` into its inputs and replay it. The outputs of a
-    replay are the graph's own tensors, rewritten by the next replay."""
-    cache = c.__dict__.setdefault("_graphs", {})
-    if key not in cache:
-        cache[key] = graphs.Graphed(fn, copy_out=False)
-    return cache[key](**args)
+_HOST_DRIVEN: list = []
+
+
+@contextlib.contextmanager
+def host_driven():
+    """Inside it a solve on the card runs its loop from the host: after
+    each chunk one read says whether to refactor and whether to go on, as
+    ``lax.while_loop`` runs under ``jax.disable_jit()``. The same parts
+    run in the same order (each chunk, refactorization and tail a replay
+    of the graph the device loop holds a clone of), so the results are
+    bit-equal to the device loop's: the comparison's host side. Nothing
+    on a main path enters it."""
+    _HOST_DRIVEN.append(True)
+    try:
+        yield
+    finally:
+        _HOST_DRIVEN.pop()
 
 
 def _amax(v: torch.Tensor) -> torch.Tensor:
     """Per-member max over the last axis."""
     return torch.amax(v, dim=-1)
+
+
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """cuSOLVER and cuBLAS for ``inv_ex`` on the card (a MAGMA path may
+    wait for the host, which no capture allows), then the caller's
+    choice back."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
 
 
 def _admm_solve(c: QPConstants, q, l, u, x0, y0,
@@ -321,57 +361,140 @@ def _admm_solve(c: QPConstants, q, l, u, x0, y0,
 
 def _admm_solve_impl(c: QPConstants, q, l, u, x0, y0,
                      settings: QPSettings) -> QPSolution:
-    """The batched ADMM, on ``(B, .)`` vectors.
+    """The batched ADMM, on ``(B, .)`` vectors: on the CPU, and on the
+    card inside :func:`host_driven` or ``graphs.disabled()``, the host's
+    loop over :class:`_Loop`'s parts; else the device loop, one graph."""
+    b = q.shape[0]
+    if q.device.type != "cuda":
+        return _Loop(c, b, settings, q.dtype, q.device).host_solve(
+            q, l, u, x0, y0)
+    loop = _card_loop(c, b, settings, q.dtype, q.device)
+    if _HOST_DRIVEN or graphs.is_disabled(loop.solve):
+        return loop.host_solve(q, l, u, x0, y0)
+    return loop.solve(q, l, u, x0, y0)
+
+
+def _card_loop(c: QPConstants, b: int, settings: QPSettings, dtype,
+               device) -> "_Loop":
+    """The :class:`_Loop` of ``b`` members cached on ``c``, its parts
+    captured at its first solve. A capture cannot hold another capture,
+    so a solve first met inside one raises."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    cache = c.__dict__.setdefault("_loops", {})
+    key = (b, dataclasses.astuple(settings), dtype, device)
+    if key not in cache:
+        if graphs.capturing(device):
+            raise RuntimeError(
+                f"the QP's device loop for a batch of {b} is built outside a "
+                f"capture: solve once before capturing a caller")
+        graph_cond.prepare(device)
+        loop = _Loop(c, b, settings, dtype, device)
+        loop.capture_parts()
+        cache[key] = loop
+    return cache[key]
+
+
+class _Loop:
+    """The ADMM's carry for a batch of ``b`` solves and the parts that act
+    on it in place: :meth:`prepare` (scaling, warm start, a fresh
+    status), :meth:`chunk` (``check_every`` iterations, then the check),
+    :meth:`refactor_where` (a new rho and factor for the members that
+    asked), :meth:`tail` (the iterations after the last check) and
+    :meth:`result` (the final residual check, unscaled).
+
+    The chunk leaves three flags on the device: ``go`` (a member still
+    running, and a whole chunk left before ``max_iter``), ``refac`` (a
+    member to refactor, and iterations left) and ``more`` (a member still
+    running, and iterations left: the tail runs). On the card
+    :meth:`capture_parts` captures the chunk, the refactorization and
+    the tail once; the solve's graph holds
+
+        prepare; WHILE(go) { chunk; IF(refac) { refactor_where } };
+        IF(more) { tail }; result
+
+    and :meth:`host_solve` drives the same parts from the host, reading
+    the flags once a chunk.
 
     Implements OSQP's adaptive-rho scheme: when the primal/dual relative
     residual ratio drifts past ``adaptive_rho_threshold``, rho is scaled
     by sqrt(prim_rel / dual_rel) and the KKT matrix is refactorized on the
     device. Each member carries its own rho and factor.
     """
-    s = settings
-    m = c.A_s.shape[0]
-    n = c.d_scale.shape[0]
-    b = q.shape[0]
-    dtype, device = q.dtype, q.device
-    big = torch.tensor(torch.finfo(dtype).max / 4, dtype=dtype, device=device)
 
-    def scalar(v):
-        return torch.tensor(v, dtype=dtype, device=device)
+    def __init__(self, c: QPConstants, b: int, settings: QPSettings, dtype,
+                 device):
+        s = self.s = settings
+        self.c, self.b = c, b
+        self.m = m = c.A_s.shape[0]
+        self.n = n = c.d_scale.shape[0]
+        self.ident = s.identity_hessian
+        self.adapt = bool(m and s.adaptive_rho)
 
-    # scale problem data
-    q_s = c.c_scale * c.d_scale * q
-    l_s = torch.clamp(c.e_scale * l, -big, big)
-    u_s = torch.clamp(c.e_scale * u, -big, big)
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
 
-    # warm start in scaled coordinates
-    x = x0 / c.d_scale
-    y = (c.c_scale / c.e_scale) * y0 if m else y0
-    z = _mv(c.A_s, x) if m else q.new_zeros((b, 0))
-    z = torch.clamp(z, l_s, u_s)
+        def scalar(v):
+            return torch.tensor(v, dtype=dtype, device=device)
 
-    ident = s.identity_hessian
-    beta = 1.0 + s.sigma
-    A_t = c.A_s.T
+        self.big = scalar(torch.finfo(dtype).max / 4)
+        self.zero = scalar(0.0)
+        self.inf = scalar(float("inf"))
+        self.tiny = scalar(1e-10)
+        self.A_t = c.A_s.T
+        if not self.ident:
+            self.K_base = c.P_s + s.sigma * torch.eye(n, dtype=dtype,
+                                                      device=device)
+        # the problem, scaled and unscaled
+        self.q_s, self.l, self.u = zeros(b, n), zeros(b, m), zeros(b, m)
+        self.l_s, self.u_s = zeros(b, m), zeros(b, m)
+        # the iterate, the one before it, and the rho and factor
+        self.x, self.z, self.y = zeros(b, n), zeros(b, m), zeros(b, m)
+        self.xp, self.yp = zeros(b, n), zeros(b, m)
+        self.rho, self.factor = zeros(b, m), zeros(b)
+        # an inverse comes column-major from LAPACK and cuSOLVER, so the
+        # carried inverse is too: a product reads it alike before and
+        # after a refactorization
+        if self.ident:
+            self.s_fac = zeros(b, m, m).transpose(1, 2)
+        else:
+            self.K = zeros(b, n, n)
+            self.K_inv = zeros(b, n, n).transpose(1, 2)
+        self.its = zeros(b, dt=torch.int32)
+        self.status = zeros(b, dt=torch.int32)
+        self.refactors = zeros(b, dt=torch.int32)
+        self.need = zeros(b, dt=torch.bool)
+        self.it = zeros(dt=torch.int32)
+        self.go, self.refac, self.more = (zeros(dt=torch.bool)
+                                          for _ in range(3))
+        self.fns = {"chunk": self.chunk, "refactor": self.refactor_where,
+                    "tail": self.tail}
+        self.parts = None          # the captured graphs of ``fns``
+        self.solve = graphs.Graphed(self._device_solve, warm=False)
 
-    def kkt_solve(K, K_inv, s_fac, rhs):
-        if ident:
+    # ------------------------------------------------------------------
+    # the linear algebra
+    # ------------------------------------------------------------------
+    def kkt_solve(self, K, K_inv, s_fac, rhs):
+        c, m, beta = self.c, self.m, 1.0 + self.s.sigma
+        if self.ident:
             # Woodbury: (beta I + A' R A)^{-1} = I/beta - A' S^{-1} A / beta^2
             if m:
-                return rhs / beta - _mv(A_t, _mv(s_fac, _mv(c.A_s, rhs))) / (
-                    beta * beta)
+                return rhs / beta - _mv(self.A_t, _mv(s_fac, _mv(
+                    c.A_s, rhs))) / (beta * beta)
             return rhs / beta
         sol = _mv(K_inv, rhs)
         r = rhs - _mv(K, sol)
         return sol + _mv(K_inv, r)  # one refinement step for f32 accuracy
 
-    zero = scalar(0.0)
-
-    def residuals(x, z, y):
+    def residuals(self, x, z, y):
+        c, m, b, zero = self.c, self.m, self.b, self.zero
         ax = _mv(c.A_s, x) if m else None
         prim = _amax(torch.abs((ax - z) / c.e_scale)) if m else zero.expand(b)
-        px = x / c.c_scale if ident else _mv(c.P_s, x)
-        aty = _mv(A_t, y) if m else torch.zeros_like(x)
-        dual = _amax(torch.abs((px + q_s + aty) / c.d_scale)) / c.c_scale
+        px = x / c.c_scale if self.ident else _mv(c.P_s, x)
+        aty = _mv(self.A_t, y) if m else torch.zeros_like(x)
+        dual = _amax(torch.abs((px + self.q_s + aty) / c.d_scale)) / c.c_scale
         # relative denominators (unscaled norms)
         denom_p = torch.maximum(
             _amax(torch.abs(ax / c.e_scale)) if m else zero.expand(b),
@@ -382,20 +505,23 @@ def _admm_solve_impl(c: QPConstants, q, l, u, x0, y0,
                 [
                     _amax(torch.abs(px / c.d_scale)),
                     _amax(torch.abs(aty / c.d_scale)),
-                    _amax(torch.abs(q_s / c.d_scale)),
+                    _amax(torch.abs(self.q_s / c.d_scale)),
                 ],
                 dim=-1,
             )
         ) / c.c_scale
         return prim, dual, denom_p, denom_d
 
-    def check_infeasibility(dx, dy):
+    def check_infeasibility(self, dx, dy):
+        c, m, b, s, zero = self.c, self.m, self.b, self.s, self.zero
         eps = s.eps_infeas
+        l, u = self.l, self.u
         # primal infeasibility certificate from dy (unscaled: E dy / c)
         if m:
             dy_un = c.e_scale * dy / c.c_scale
             norm_dy = _amax(torch.abs(dy_un))
-            aty_dy = _amax(torch.abs(_mv(A_t, dy) / c.d_scale / c.c_scale))
+            aty_dy = _amax(torch.abs(_mv(self.A_t, dy) / c.d_scale
+                                     / c.c_scale))
             dy_plus = torch.clamp_min(dy_un, 0.0)
             dy_minus = torch.clamp_max(dy_un, 0.0)
             sup = torch.sum(torch.where(dy_plus > 0, u * dy_plus, zero),
@@ -403,7 +529,7 @@ def _admm_solve_impl(c: QPConstants, q, l, u, x0, y0,
                 torch.where(dy_minus < 0, l * dy_minus, zero), dim=-1)
         else:
             norm_dy = zero.expand(b)
-            aty_dy = sup = scalar(float("inf")).expand(b)
+            aty_dy = sup = self.inf.expand(b)
         prim_infeas = (
             (norm_dy > 1e-12)
             & (aty_dy <= eps * norm_dy)
@@ -412,9 +538,9 @@ def _admm_solve_impl(c: QPConstants, q, l, u, x0, y0,
         # dual infeasibility certificate from dx
         dx_un = c.d_scale * dx
         norm_dx = _amax(torch.abs(dx_un))
-        pdx_vec = dx / c.c_scale if ident else _mv(c.P_s, dx)
+        pdx_vec = dx / c.c_scale if self.ident else _mv(c.P_s, dx)
         pdx = _amax(torch.abs(pdx_vec / c.d_scale)) / c.c_scale
-        qdx = torch.sum((q_s / c.d_scale) * dx_un, dim=-1) / c.c_scale
+        qdx = torch.sum((self.q_s / c.d_scale) * dx_un, dim=-1) / c.c_scale
         dual_infeas = (
             (norm_dx > 1e-12)
             & (pdx <= eps * norm_dx)
@@ -430,52 +556,82 @@ def _admm_solve_impl(c: QPConstants, q, l, u, x0, y0,
             dual_infeas = dual_infeas & up_ok & lo_ok
         return prim_infeas, dual_infeas
 
-    def inverse(M):
-        # inv_ex: no check of the factorization, so no wait on the card
-        return torch.linalg.inv_ex(M)[0]
+    def factorize(self, rho):
+        """``(K, K_inv, s_fac)`` for a rho per member; ``inv_ex`` checks
+        nothing, so nothing waits for the card."""
+        c, m, beta = self.c, self.m, 1.0 + self.s.sigma
+        with _cusolver(rho.device):
+            if self.ident:
+                return None, None, torch.linalg.inv_ex(
+                    torch.diag_embed(1.0 / rho) + c.aat / beta)[0]
+            K = self.K_base
+            if m:
+                K = K + torch.bmm(self.A_t.expand(self.b, self.n, m),
+                                  rho[:, :, None] * c.A_s)
+            return K, torch.linalg.inv_ex(K)[0], None
 
-    def refactor(rho):
-        if ident:
-            return None, None, inverse(torch.diag_embed(1.0 / rho) + c.aat / beta)
-        K = c.P_s + s.sigma * torch.eye(n, dtype=dtype, device=device)
-        if m:
-            K = K + torch.bmm(A_t.expand(b, n, m), rho[:, :, None] * c.A_s)
-        return K, inverse(K), None
+    # ------------------------------------------------------------------
+    # the parts
+    # ------------------------------------------------------------------
+    def prepare(self, q, l, u, x0, y0) -> None:
+        """Scale the problem, warm-start, and reset the counters, rho and
+        factor: the carry of a fresh solve."""
+        c, m, s = self.c, self.m, self.s
+        b = self.b
+        self.q_s.copy_(c.c_scale * c.d_scale * q)
+        self.l.copy_(l)
+        self.u.copy_(u)
+        self.l_s.copy_(torch.clamp(c.e_scale * l, -self.big, self.big))
+        self.u_s.copy_(torch.clamp(c.e_scale * u, -self.big, self.big))
+        # warm start in scaled coordinates
+        x = x0 / c.d_scale
+        y = (c.c_scale / c.e_scale) * y0 if m else y0
+        z = _mv(c.A_s, x) if m else q.new_zeros((b, 0))
+        z = torch.clamp(z, self.l_s, self.u_s)
+        for dst, src in ((self.x, x), (self.z, z), (self.y, y),
+                         (self.xp, x), (self.yp, y)):
+            dst.copy_(src)
+        self.rho.copy_(c.rho.expand(b, m))
+        if self.ident:
+            self.s_fac.copy_(c.s_fac.expand(b, m, m))
+        else:
+            self.K.copy_(c.K.expand(b, self.n, self.n))
+            self.K_inv.copy_(c.K_inv.expand(b, self.n, self.n))
+        self.its.zero_()
+        self.status.fill_(MAX_ITER_REACHED)
+        self.refactors.zero_()
+        self.it.zero_()
+        self.go.fill_(True)
+        self.refac.fill_(False)
+        self.more.fill_(s.max_iter > 0)
 
-    def per_member(t):
-        return t.expand(b, *t.shape).clone()
-
-    # carry: x, z, y, x_prev, y_prev and the factor, each per member
-    rho = per_member(c.rho)
-    K = K_inv = s_fac = None
-    if ident:
-        s_fac = per_member(c.s_fac)
-    else:
-        K, K_inv = per_member(c.K), per_member(c.K_inv)
-    x_prev, y_prev = x, y
-    its = torch.zeros(b, dtype=torch.int32, device=device)
-    status = torch.full((b,), MAX_ITER_REACHED, dtype=torch.int32,
-                        device=device)
-
-    def iterate(x, z, y, xp, yp, rho, rho_inv, q_s, l_s, u_s, K=None,
-                K_inv=None, s_fac=None):
-        """``steps`` ADMM iterations; returns the iterate, the one before
-        it, and the one before that (the reference's carried x_prev,
-        y_prev at its check)."""
+    def iterate(self, steps: int):
+        """``steps`` ADMM iterations from the carry; returns the iterate,
+        the one before it, and the one before that (the reference's
+        carried x_prev, y_prev at its check)."""
+        s, m, c = self.s, self.m, self.c
+        x, z, y, xp, yp = self.x, self.z, self.y, self.xp, self.yp
+        rho = self.rho
+        rho_inv = 1.0 / rho if m else rho
+        K = K_inv = s_fac = None
+        if self.ident:
+            s_fac = self.s_fac
+        else:
+            K, K_inv = self.K, self.K_inv
         for _ in range(steps):
             dx_from, dy_from = xp, yp
             # x-update
-            rhs = s.sigma * x - q_s
+            rhs = s.sigma * x - self.q_s
             if m:
-                rhs = rhs + _mv(A_t, rho * z - y)
-            x_t = kkt_solve(K, K_inv, s_fac, rhs)
+                rhs = rhs + _mv(self.A_t, rho * z - y)
+            x_t = self.kkt_solve(K, K_inv, s_fac, rhs)
             x_new = s.alpha * x_t + (1 - s.alpha) * x
             if m:
                 z_t = _mv(c.A_s, x_t)
                 # z_pre carries rho^{-1} y, so the dual update collapses to
                 # y_new = rho (z_pre - z_new)  [OSQP Algorithm 1 steps 4-5]
                 z_pre = s.alpha * z_t + (1 - s.alpha) * z + rho_inv * y
-                z_new = torch.clamp(z_pre, l_s, u_s)
+                z_new = torch.clamp(z_pre, self.l_s, self.u_s)
                 y_new = rho * (z_pre - z_new)
             else:
                 z_new, y_new = z, y
@@ -483,90 +639,157 @@ def _admm_solve_impl(c: QPConstants, q, l, u, x0, y0,
             x, z, y = x_new, z_new, y_new
         return x, z, y, xp, yp, dx_from, dy_from
 
-    it = 0
-    while it < s.max_iter:
-        running = status == MAX_ITER_REACHED
-        steps = min(s.check_every - it % s.check_every, s.max_iter - it)
-        args = dict(x=x, z=z, y=y, xp=x_prev, yp=y_prev, rho=rho,
-                    rho_inv=1.0 / rho if m else rho, q_s=q_s, l_s=l_s,
-                    u_s=u_s)
-        if ident:
-            args["s_fac"] = s_fac
-        else:
-            args.update(K=K, K_inv=K_inv)
-        if device.type == "cuda":
-            key = (b, steps, dataclasses.astuple(s))
-            out = _graphed(c, key, iterate, args)
-        else:
-            out = iterate(**args)
-        xs, zs, ys, xps, yps, dx_from, dy_from = out
-        it += steps
+    def _advance(self, steps: int, check: bool) -> None:
+        s, b = self.s, self.b
+        running = self.status == MAX_ITER_REACHED
+        xs, zs, ys, xps, yps, dx_from, dy_from = self.iterate(steps)
 
         def keep(new, old):
             mask = running.reshape((b,) + (1,) * (new.dim() - 1))
             return torch.where(mask, new, old)
 
-        its = torch.where(running, its + steps, its)
-        need = None
-        if it % s.check_every == 0:
-            prim_r, dual_r, denom_p, denom_d = residuals(xs, zs, ys)
+        self.it.add_(steps)
+        self.its.copy_(torch.where(running, self.its + steps, self.its))
+        if check:
+            status = self.status
+            prim_r, dual_r, denom_p, denom_d = self.residuals(xs, zs, ys)
             eps_p = s.eps_abs + s.eps_rel * denom_p
             eps_d = s.eps_abs + s.eps_rel * denom_d
             solved = (prim_r <= eps_p) & (dual_r <= eps_d)
-            p_inf, d_inf = check_infeasibility(xs - dx_from, ys - dy_from)
+            p_inf, d_inf = self.check_infeasibility(xs - dx_from, ys - dy_from)
             new_status = torch.where(
                 solved, SOLVED,
                 torch.where(p_inf, PRIMAL_INFEASIBLE,
                             torch.where(d_inf, DUAL_INFEASIBLE, status)),
             ).to(torch.int32)
-            status = keep(new_status, status)
-            if m and s.adaptive_rho:
-                tiny = scalar(1e-10)
+            self.status.copy_(keep(new_status, status))
+            if self.adapt:
+                tiny = self.tiny
                 prim_rel = prim_r / (denom_p + tiny)
                 dual_rel = dual_r / (denom_d + tiny)
                 factor = _sqrt(prim_rel / (dual_rel + tiny) + tiny)
-                need = running & (status == MAX_ITER_REACHED) & (
+                need = running & (self.status == MAX_ITER_REACHED) & (
                     (factor > s.adaptive_rho_threshold)
                     | (factor < 1.0 / s.adaptive_rho_threshold)
                 )
-        x, z, y = keep(xs, x), keep(zs, z), keep(ys, y)
-        x_prev, y_prev = keep(xps, x_prev), keep(yps, y_prev)
-        if it >= s.max_iter:
-            break
-        # the one read of a check: any member still running, any to refactor
-        flags = torch.stack([
-            (status == MAX_ITER_REACHED).any(),
-            need.any() if need is not None else status.new_zeros((), dtype=torch.bool),
-        ]).tolist()
-        if flags[1]:
-            new_rho = torch.clamp(rho * factor[:, None], s.rho_min, s.rho_max)
-            K2, K_inv2, s_fac2 = refactor(new_rho)
-            sel = need[:, None]
-            rho = torch.where(sel, new_rho, rho)
-            if ident:
-                s_fac = torch.where(sel[:, :, None], s_fac2, s_fac)
-            else:
-                K = torch.where(sel[:, :, None], K2, K)
-                K_inv = torch.where(sel[:, :, None], K_inv2, K_inv)
-        if not flags[0]:
-            break
+                self.factor.copy_(factor)
+                self.need.copy_(need)
+        # every kept value first: after one step the iterate before it is
+        # the carry itself
+        kept = [(dst, keep(new, dst)) for dst, new in (
+            (self.x, xs), (self.z, zs), (self.y, ys), (self.xp, xps),
+            (self.yp, yps))]
+        for dst, new in kept:
+            dst.copy_(new)
+        if check:
+            left = self.status == MAX_ITER_REACHED
+            left = left.any()
+            self.go.copy_(left & (self.it <= s.max_iter - s.check_every))
+            self.more.copy_(left & (self.it < s.max_iter))
+            if self.adapt:
+                self.refac.copy_(self.need.any() & (self.it < s.max_iter))
 
-    # final residual check in case max_iter landed between checks
-    prim_r, dual_r, denom_p, denom_d = residuals(x, z, y)
-    status = torch.where(
-        (status == MAX_ITER_REACHED)
-        & (prim_r <= s.eps_abs + s.eps_rel * denom_p)
-        & (dual_r <= s.eps_abs + s.eps_rel * denom_d),
-        SOLVED,
-        status,
-    ).to(torch.int32)
+    def chunk(self) -> None:
+        """``check_every`` iterations, the check, and the flags."""
+        self._advance(self.s.check_every, True)
 
-    return QPSolution(
-        x=c.d_scale * x,
-        y=(c.e_scale * y / c.c_scale) if m else y,
-        z=(z / c.e_scale) if m else z,
-        status=status,
-        iterations=its,
-        prim_res=prim_r,
-        dual_res=dual_r,
-    )
+    def tail(self) -> None:
+        """The ``max_iter % check_every`` iterations after the last whole
+        chunk: no check, as ``max_iter`` lands between checks."""
+        self._advance(self.s.max_iter % self.s.check_every, False)
+
+    def refactor_where(self) -> None:
+        """A new rho, and the factor for it, for each member that asked at
+        the last check; the others keep theirs."""
+        s = self.s
+        new_rho = torch.clamp(self.rho * self.factor[:, None], s.rho_min,
+                              s.rho_max)
+        K2, K_inv2, s_fac2 = self.factorize(new_rho)
+        sel = self.need[:, None]
+        self.rho.copy_(torch.where(sel, new_rho, self.rho))
+        if self.ident:
+            self.s_fac.copy_(torch.where(sel[:, :, None], s_fac2, self.s_fac))
+        else:
+            self.K.copy_(torch.where(sel[:, :, None], K2, self.K))
+            self.K_inv.copy_(torch.where(sel[:, :, None], K_inv2, self.K_inv))
+        self.refactors.add_(self.need.to(torch.int32))
+
+    def result(self) -> QPSolution:
+        """The final residual check, in case max_iter landed between
+        checks, and the solution in unscaled units (new tensors)."""
+        c, m, s = self.c, self.m, self.s
+        x, z, y = self.x, self.z, self.y
+        prim_r, dual_r, denom_p, denom_d = self.residuals(x, z, y)
+        status = torch.where(
+            (self.status == MAX_ITER_REACHED)
+            & (prim_r <= s.eps_abs + s.eps_rel * denom_p)
+            & (dual_r <= s.eps_abs + s.eps_rel * denom_d),
+            SOLVED,
+            self.status,
+        ).to(torch.int32)
+        return QPSolution(
+            x=c.d_scale * x,
+            y=(c.e_scale * y / c.c_scale) if m else y.clone(),
+            z=(z / c.e_scale) if m else z.clone(),
+            status=status,
+            iterations=self.its.clone(),
+            prim_res=prim_r,
+            dual_res=dual_r,
+        )
+
+    # ------------------------------------------------------------------
+    # the two drivers
+    # ------------------------------------------------------------------
+    def capture_parts(self) -> None:
+        """Run the chunk, the refactorization and the tail once each, then
+        capture each as a graph kept for the device loop's clones (on the
+        card; outside any capture)."""
+        dev = self.x.device
+        s = self.s
+        names = ["chunk"] + ["refactor"] * self.adapt + [
+            "tail"] * bool(s.max_iter % s.check_every)
+        self.parts = {}
+        for name in names:
+            fn = self.fns[name]
+            graphs.warm_up(fn, (), {}, dev)
+            self.parts[name] = graphs.capture(fn, (), {}, [], dev,
+                                              keep_graph=True)[0]
+
+    def _run(self, name: str) -> None:
+        """A part on the host's orders: its graph's replay, or the part
+        itself on the CPU and under ``graphs.disabled()``."""
+        if self.parts is None or graphs.is_disabled(self.solve):
+            self.fns[name]()
+        else:
+            self.parts[name].replay()
+
+    def host_solve(self, q, l, u, x0, y0) -> QPSolution:
+        """The loop on the host: one read of the flags a chunk."""
+        s = self.s
+        self.prepare(q, l, u, x0, y0)
+        go, refac, more = True, False, s.max_iter > 0
+        if s.max_iter >= s.check_every:
+            while go:
+                self._run("chunk")
+                go, refac, more = torch.stack(
+                    [self.go, self.refac, self.more]).tolist()
+                if refac:
+                    self._run("refactor")
+        if s.max_iter % s.check_every and more:
+            self._run("tail")
+        return self.result()
+
+    def _device_solve(self, q, l, u, x0, y0) -> QPSolution:
+        """The solve as one graph, captured (whole, or inline in a
+        caller's capture): no read to the host."""
+        s = self.s
+        self.prepare(q, l, u, x0, y0)
+        if s.max_iter >= s.check_every:
+            body = [self.parts["chunk"]]
+            if self.adapt:
+                body.append(graph_cond.If(self.refac,
+                                          (self.parts["refactor"],)))
+            graph_cond.while_loop(self.go, body)
+        if s.max_iter % s.check_every:
+            graph_cond.if_then(self.more, [self.parts["tail"]])
+        return self.result()

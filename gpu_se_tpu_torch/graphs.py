@@ -48,6 +48,13 @@ Inside :class:`disabled` every graphed function (or those it names)
 runs eagerly, one op at a time, as the reference's do under
 ``jax.disable_jit()``: the eager side of a comparison.
 
+A graphed function called while its card's current stream is capturing
+(a graphed step that calls a graphed solve) runs inline: its ops join
+the caller's capture, as a jitted function called inside ``jax.jit`` is
+traced into its caller. Conditional nodes (``ops/graph_cond``) go into
+whatever graph is being captured, so a step that holds a QP solve holds
+its whole device loop.
+
 The kernel wrappers (:data:`KERNELS`) count launches in Python, where
 they enqueue: during a capture nothing reaches the card, so the counts a
 capture adds are taken back, kept as the graph's launches, and added at
@@ -89,7 +96,9 @@ class disabled:
         _DISABLED.remove(self.only)
 
 
-def _disabled(g: "Graphed") -> bool:
+def is_disabled(g: "Graphed") -> bool:
+    """Whether ``g`` runs eagerly: an open :class:`disabled` names it or
+    names none."""
     return any(only is None or id(g) in only for only in _DISABLED)
 
 
@@ -215,17 +224,25 @@ def warm_up(fn: Callable, args, kwargs, dev):
     return out
 
 
-def capture(fn: Callable, args, kwargs, gens: list, dev):
+def capturing(dev: torch.device) -> bool:
+    """Whether the current stream of the card ``dev`` is capturing."""
+    return dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def capture(fn: Callable, args, kwargs, gens: list, dev,
+            keep_graph: bool = False):
     """``(graph, outputs, pool bytes)``: ``fn`` captured with the
     generators ``gens`` registered; the pool's size is the card's reserved
-    memory grown by the capture.
+    memory grown by the capture. With ``keep_graph`` the graph keeps its
+    raw CUDA graph (``raw_cuda_graph()``), which a conditional node's body
+    clones (``ops/graph_cond``), and is instantiated at its first replay.
 
     Only this thread's calls can spoil the capture (``thread_local``):
     another thread's CUDA calls (a process group's watchdog, a sampler)
     go on. The cyclic garbage collector is held off during it, so no
     finalizer of an earlier graph or stream runs inside the capture
     (``torch.cuda.graph`` collects once before it begins)."""
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     for gen in gens:
         graph.register_generator_state(gen)
     torch.cuda.synchronize(dev)
@@ -257,13 +274,19 @@ class Graphed:
     copy_out : bool
         Hand out clones of the graph's outputs (default). Without it the
         outputs are the graph's own tensors, rewritten by the next call.
+    warm : bool
+        Run a key's first call eagerly before the capture (default).
+        Without it the first call captures and replays: for a function
+        that can run only inside a capture (one that inserts conditional
+        nodes, ``ops/graph_cond``).
     """
 
     def __init__(self, fn: Callable, key: Optional[Callable] = None,
-                 copy_out: bool = True):
+                 copy_out: bool = True, warm: bool = True):
         self.fn = fn
         self.key = key
         self.copy_out = copy_out
+        self.warm = warm
         self.entries: dict = {}
         self.captures = 0
         self.replays = 0
@@ -271,7 +294,11 @@ class Graphed:
     def __call__(self, *args, **kwargs):
         tensors, gens, consts = [], [], []
         spec = _flatten((args, kwargs), tensors, gens, consts)
-        if _disabled(self) or not tensors or not on_card(tensors[0].device):
+        if is_disabled(self) or not tensors or not on_card(tensors[0].device):
+            return self.fn(*args, **kwargs)
+        if capturing(tensors[0].device):
+            # inside a caller's capture: the ops join it, and its
+            # Graphed counts their launches at each of its replays
             return self.fn(*args, **kwargs)
         key = (spec, self.key() if self.key is not None else None)
         entry = self.entries.get(key)
@@ -279,10 +306,13 @@ class Graphed:
             del self.entries[key]          # frees the graph and its pool
             entry = None
         if entry is None:
-            out = warm_up(self.fn, args, kwargs, tensors[0].device)
-            self.entries[key] = self._capture(args, kwargs, tensors, gens,
-                                              consts)
-            return out
+            out = None
+            if self.warm:
+                out = warm_up(self.fn, args, kwargs, tensors[0].device)
+            entry = self.entries[key] = self._capture(args, kwargs, tensors,
+                                                      gens, consts)
+            if self.warm:
+                return out
         return self._replay(entry, tensors)
 
     def _capture(self, args, kwargs, tensors, gens, consts) -> Entry:

@@ -166,9 +166,11 @@ def static_outputs(x: torch.Tensor, u=None) -> torch.Tensor:
 
 
 def all_outputs(x: torch.Tensor) -> torch.Tensor:
-    """All states scaled to mass concentrations; ``x`` is ``(5, ...)``."""
-    masses = torch.as_tensor(MOLAR_MASSES, dtype=x.dtype, device=x.device)
-    return x * masses.reshape((5,) + (1,) * (x.dim() - 1))
+    """All states scaled to mass concentrations; ``x`` is ``(5, ...)``.
+    Each row times its mass as a host scalar: no copy from the host, so
+    a CUDA graph can capture it."""
+    return torch.stack([x[i] * m
+                        for i, m in enumerate(MOLAR_MASSES.tolist())])
 
 
 def euler_step(x: torch.Tensor, u: torch.Tensor, dt, high_n: bool = False):

@@ -35,6 +35,8 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_H = ctypes.c_ulonglong      # a conditional node's handle
 _SIGNATURES = {
     # the entries of a compact tile; the keys an expand block stages at most;
     # the threads of a merge-path block; the merged items one of them walks
@@ -66,6 +68,22 @@ _SIGNATURES = {
     "gst_counter_draw": [_P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P],
     # key, start, count, nx, words, stream
     "gst_counter_words": [_P, ctypes.c_longlong, _I, _I, _P, _P],
+    # conditional nodes (graph_cond.cu): ready the set kernel; in the
+    # capture on a stream: a handle (stream, default, out), its set kernel
+    # (stream, handle, flag, counted), the node (stream, handle, type,
+    # body out); in a body graph: a handle (graph, default, out), a child
+    # (graph, last, child), a set kernel (graph, last, handle, flag,
+    # counted), a node (graph, last, handle, type, body out); the count
+    "gst_cond_prepare": [],
+    "gst_capture_handle": [_P, _U, _P],
+    "gst_capture_set": [_P, _H, _P, _I],
+    "gst_capture_cond": [_P, _H, _I, _P],
+    "gst_graph_handle": [_P, _U, _P],
+    "gst_graph_child": [_P, _P, _P],
+    "gst_graph_set": [_P, _P, _H, _P, _I],
+    "gst_graph_cond": [_P, _P, _H, _I, _P],
+    "gst_cond_count": [_P],
+    "gst_cond_count_reset": [],
 }
 
 

@@ -302,3 +302,41 @@ def serial_case(n: int = SERIAL_N, seed: int = SERIAL_SEED):
     rng = np.random.default_rng(seed)
     particles = (X_SS + rng.normal(0, 0.01, (n, NX))).astype(np.float32)
     return particles, rng.normal(0, 1e-3, (n, NX)).astype(np.float32)
+
+
+# ----------------------------------------------------------------------
+# small QPs for the solve's device loop against its host-driven loop
+# ----------------------------------------------------------------------
+def random_qp(n: int, m: int, seed: int):
+    """``(P, A, q, l, u)``: a strongly convex QP with a feasible box
+    (``tests/test_qp.make_random_qp``'s draws)."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    P = M @ M.T + np.eye(n)
+    A = rng.normal(size=(m, n))
+    q = rng.normal(size=n)
+    x_feas = rng.normal(size=n)
+    margin = rng.uniform(0.1, 1.0, size=m)
+    return P, A, q, A @ x_feas - margin, A @ x_feas + margin
+
+
+def identity_qp(n: int = 30, m: int = 6, seed: int = 0):
+    """``(P, A, q, l, u)`` with ``P = 2 I``, the Woodbury path of the
+    MPC's QP: the float32 ADMM refactorizes at every check and stalls."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n))
+    q = rng.normal(size=n)
+    x_feas = rng.normal(size=n)
+    margin = rng.uniform(0.1, 1.0, size=m)
+    return 2.0 * np.eye(n), A, q, A @ x_feas - margin, A @ x_feas + margin
+
+
+# name: (problem, QPSettings keywords, status, refactorizations at least):
+# a general Hessian solved after refactorizing, one stalled at a max_iter
+# between checks after one, and the Woodbury path stalled after many
+QP_CASES = {
+    "general_refactor": (lambda: random_qp(20, 30, 2), {}, 1, 1),
+    "general_ragged": (lambda: random_qp(12, 18, 3), dict(max_iter=110), 0,
+                       1),
+    "identity_stall": (identity_qp, dict(max_iter=160), 0, 1),
+}

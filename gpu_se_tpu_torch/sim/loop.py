@@ -6,13 +6,14 @@ masks (the reference's float timers evaluated over the time grid), which
 take the place of the scan's ``lax.cond``s. The filter state, the plant,
 the input, the prediction and the warm start stay on the device; the
 choices that depend on the QP's status (the input, the prediction, the
-warm-start reset, ``have_pred``) are ``torch.where``s, so the only reads
-back to the host are the QP's one per check. On the card the filter
-work runs as replays of CUDA graphs (``gpu_se_tpu_torch.graphs``),
-captured at the first run: the predict, the control event's update,
-resample and point estimate, and each step's point estimate. The MPC
-solve replays its QP's graphs of 25 iterations, one host read a check:
-a graph cannot hold the QP's data-dependent end.
+warm-start reset, ``have_pred``) are ``torch.where``s. On the card each
+time step is one replay of a CUDA graph (``gpu_se_tpu_torch.graphs``),
+one for each pair of event masks and resample route, captured at the
+first run: the predict, the measurement, the control event (update,
+resample, point estimate and the MPC's solve, whose ADMM loop is a
+conditional WHILE node inside the step's graph, ``control/qp.py``), the
+``torch.where``s, the plant's Euler step and the point estimate. From
+the first step to the last nothing is read back to the host.
 
 The plant and measurement noise is drawn up front from the caller's
 ``torch.Generator``, one state draw and one measurement draw a step. As
@@ -78,8 +79,10 @@ def make_scan_loop(
     ``gpu_se_tpu_torch.filters.gs_ukf``: both expose the same functional
     predict/update/resample/point_estimate surface). ``generator`` is a
     ``torch.Generator`` on that device: the plant and measurement noise.
-    The records come back as stacked tensors, one row a step;
-    ``run.graphs`` holds the filter work's graphed functions
+    The records come back as stacked tensors, one row a step. ``run`` is
+    ``run.steps(*run.start(filter_state, x_plant, generator))``: ``start``
+    copies the plant's state to the device and draws the noise,
+    ``steps`` runs the loop; ``run.graphs`` holds its graphed step
     (``gpu_se_tpu_torch.graphs``).
     """
     core = filter_core if filter_core is not None else pf_core
@@ -110,69 +113,82 @@ def make_scan_loop(
     state_pdf = state_pdf.to(device)
     measurement_pdf = measurement_pdf.to(device)
 
-    def event(state, u, z, g, measurement_pdf):
-        state = core.resample(core.update(state, u, z, g, measurement_pdf))
-        return state, core.point_estimate(state)
-
-    predict_g = graphs.Graphed(core.predict)
-    event_g = graphs.Graphed(event, key=resampling.route)
-    estimate_g = graphs.Graphed(core.point_estimate)
     # the filter's stream in each run: set to the caller's state's, so a
     # run leaves the caller's state as it was and two runs of one state
     # draw the same numbers (the reference's state holds an immutable
     # key); one generator for every run, so the graphs stay valid
     filter_gen = torch.Generator(device=device)
 
-    def run(filter_state, x_plant, generator: torch.Generator) -> LoopRecord:
+    def step(state, x, u, y_pred, have_pred, warm_v, warm_y, noise,
+             predict: bool, control: bool):
+        """One time step; ``noise`` holds its measurement and state noise.
+        Returns the carry and the step's records."""
+        # --- filter predict (every dt_predict) ---
+        if predict:
+            state = core.predict(state, u, dt_t, f, state_pdf)
+
+        # --- measurement of the current plant output ---
+        z = bio.all_outputs(x)[out_idx] + noise[0]
+
+        # --- control event: update + resample + MPC ---
+        status = solved
+        if control:
+            state = core.resample(core.update(state, u, z, g,
+                                              measurement_pdf))
+        x_f = core.point_estimate(state)
+        if control:
+            x0_dev = x_f[state_sel] - x_bar
+            um1_dev = u[in_idx] - u_bar
+            bias = torch.where(have_pred, (z - y_bar) - y_pred,
+                               torch.zeros_like(y_pred))
+            ctrl, y_pred_new, sol = mpc_step(
+                mpc_consts, x0_dev, um1_dev, bias, warm_v, warm_y)
+            ok = sol.status == SOLVED
+            u = torch.where(ok, ctrl + u_bar, fallback)
+            y_pred = torch.where(ok, y_pred_new, y_pred)
+            warm_v = torch.where(ok, sol.x, torch.zeros_like(sol.x))
+            warm_y = torch.where(ok, sol.y, torch.zeros_like(sol.y))
+            have_pred = ok | have_pred
+            status = sol.status
+
+        # --- plant Euler step + state noise ---
+        x = bio.euler_step(x, u, dt_t) + noise[1]
+        return (state, x, u, y_pred, have_pred, warm_v, warm_y), (
+            u, x, z, x_f, status)
+
+    step_g = graphs.Graphed(step, key=resampling.route)
+
+    def start(filter_state, x_plant, generator: torch.Generator):
+        """The carry at t = 0 and every step's noise, ``(n_steps, 4)``
+        (the measurement's and the state's draw in the first two columns:
+        each row a whole 16 bytes, so every step's row is laid out
+        alike)."""
         n_steps = len(ts) - 1
         filter_gen.set_state(filter_state.generator.get_state())
         state = dataclasses.replace(filter_state, generator=filter_gen)
-        x = dev(x_plant)
-        u = fallback.clone()
-        y_pred = torch.zeros(mpc.No, dtype=torch.float32, device=device)
-        have_pred = torch.zeros((), dtype=torch.bool, device=device)
-        warm_v = torch.zeros(n_d, dtype=torch.float32, device=device)
-        warm_y = torch.zeros(m_rows, dtype=torch.float32, device=device)
-        meas_noise = measurement_pdf.draw(generator, (n_steps,))[:, 0]
-        state_noise = state_pdf.draw(generator, (n_steps,))[:, 0]
+        noise = torch.zeros((n_steps, 4), dtype=torch.float32, device=device)
+        noise[:, 0] = measurement_pdf.draw(generator, (n_steps,))[:, 0]
+        noise[:, 1] = state_pdf.draw(generator, (n_steps,))[:, 0]
+        carry = (state, dev(x_plant), fallback.clone(),
+                 torch.zeros(mpc.No, dtype=torch.float32, device=device),
+                 torch.zeros((), dtype=torch.bool, device=device),
+                 torch.zeros(n_d, dtype=torch.float32, device=device),
+                 torch.zeros(m_rows, dtype=torch.float32, device=device))
+        return carry, noise
 
-        rec = {k: [] for k in LoopRecord._fields}
-        for i in range(n_steps):
-            # --- filter predict (every dt_predict) ---
-            if predict_mask[i]:
-                state = predict_g(state, u, dt_t, f, state_pdf)
+    def steps(carry, noise) -> LoopRecord:
+        """Every step from ``start``'s carry: one replay a step on the
+        card, no read to the host."""
+        rec = []
+        for i in range(len(ts) - 1):
+            carry, out = step_g(*carry, noise[i], bool(predict_mask[i]),
+                                bool(control_mask[i]))
+            rec.append(out)
+        return LoopRecord(*(torch.stack(v) for v in zip(*rec)))
 
-            # --- measurement of the current plant output ---
-            z = bio.all_outputs(x)[out_idx] + meas_noise[i]
+    def run(filter_state, x_plant, generator: torch.Generator) -> LoopRecord:
+        return steps(*start(filter_state, x_plant, generator))
 
-            # --- control event: update + resample + MPC ---
-            status = solved
-            if control_mask[i]:
-                state, x_hat = event_g(state, u, z, g, measurement_pdf)
-                x0_dev = x_hat[state_sel] - x_bar
-                um1_dev = u[in_idx] - u_bar
-                bias = torch.where(have_pred, (z - y_bar) - y_pred,
-                                   torch.zeros_like(y_pred))
-                ctrl, y_pred_new, sol = mpc_step(
-                    mpc_consts, x0_dev, um1_dev, bias, warm_v, warm_y)
-                ok = sol.status == SOLVED
-                u = torch.where(ok, ctrl + u_bar, fallback)
-                y_pred = torch.where(ok, y_pred_new, y_pred)
-                warm_v = torch.where(ok, sol.x, torch.zeros_like(sol.x))
-                warm_y = torch.where(ok, sol.y, torch.zeros_like(sol.y))
-                have_pred = ok | have_pred
-                status = sol.status
-
-            # --- plant Euler step + state noise ---
-            x = bio.euler_step(x, u, dt_t) + state_noise[i]
-
-            rec["us"].append(u)
-            rec["xs"].append(x)
-            rec["ys_meas"].append(z)
-            rec["xs_f"].append(estimate_g(state))
-            rec["status"].append(status)
-        return LoopRecord(**{k: torch.stack(v) for k, v in rec.items()})
-
-    run.graphs = {"predict": predict_g, "event": event_g,
-                  "estimate": estimate_g}
+    run.start, run.steps = start, steps
+    run.graphs = {"step": step_g}
     return run, ts

@@ -11,6 +11,7 @@ This file imports no JAX, so it also runs where JAX is not installed
 The kernels are integer logic plus copies, so every output must equal
 the plain version's bit for bit (``torch.equal``).
 """
+import contextlib
 import os
 import shutil
 
@@ -88,8 +89,9 @@ def test_library_name_tracks_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "counter_draw.cu", "resample.cu", "resample_block.cu",
-        "resample_coarse.cu", "resample_expand.cu", "resample_merge.cu"]
+        "counter_draw.cu", "graph_cond.cu", "resample.cu",
+        "resample_block.cu", "resample_coarse.cu", "resample_expand.cu",
+        "resample_merge.cu"]
 
 
 def test_library_name_tracks_headers(tmp_path, monkeypatch):
@@ -990,3 +992,122 @@ def test_graphed_pacf_chain_on_card(cuda):
     graph, device = (np.array(out[k]) for k in ("graph_series_ms",
                                                 "device_series_ms"))
     assert len(graph) == 12 and min(graph) > 0 and (graph <= device).all()
+
+
+# ----------------------------------------------------------------------
+# conditional nodes and the QP's device loop
+# ----------------------------------------------------------------------
+def _kept(fn, dev):
+    """``fn`` run once, then captured as a graph kept for a node's body."""
+    from gpu_se_tpu_torch import graphs
+
+    graphs.warm_up(fn, (), {}, dev)
+    return graphs.capture(fn, (), {}, [], dev, keep_graph=True)[0]
+
+
+@pytest.mark.gpu
+def test_graph_cond_loop_on_card(cuda):
+    """A WHILE node whose body holds a kept graph and a nested IF, then a
+    tail IF, all in one captured graph: each replay starts the loop
+    afresh and runs it 7 times, the IF on odd counts, the tail once; the
+    count on the card adds the WHILE iterations. Outside a capture the
+    wrapper raises."""
+    from gpu_se_tpu_torch import graphs
+    from gpu_se_tpu_torch.ops import graph_cond as gc
+
+    gc.prepare(cuda)
+    n, hits, tails = (torch.zeros((), dtype=torch.int32, device=cuda)
+                      for _ in range(3))
+    go, odd, more = (torch.zeros((), dtype=torch.bool, device=cuda)
+                     for _ in range(3))
+
+    def body():
+        n.add_(1)
+        go.copy_(n < 7)
+        odd.copy_(n % 2 == 1)
+
+    parts = [_kept(fn, cuda) for fn in (
+        body, lambda: hits.add_(1), lambda: tails.add_(10))]
+
+    def whole():
+        for t in (n, hits, tails):
+            t.zero_()
+        gc.while_loop(go, [parts[0], gc.If(odd, (parts[1],))])
+        more.copy_(n == 7)
+        gc.if_then(more, [parts[2]])
+
+    graph = graphs.capture(whole, (), {}, [], cuda)[0]
+    gc.reset_iterations(cuda)
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert (int(n), int(hits), int(tails)) == (7, 4, 10)
+    assert gc.iterations(cuda) == 14
+    with pytest.raises(RuntimeError, match="no capture is underway"):
+        gc.while_loop(go, [parts[0]])
+
+
+def _qp_pair(port, qs, ls, us, dev):
+    """The device loop's and the host-driven loop's solution of the same
+    batch, each with its carried rho and refactorization counts."""
+    from gpu_se_tpu_torch.control import qp
+
+    t = lambda v: torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                  device=dev)
+    out = []
+    for host in (False, True):
+        ctx = qp.host_driven() if host else contextlib.nullcontext()
+        with ctx:
+            sol = port.solve_batch(t(qs), t(ls), t(us))
+        loop = qp._card_loop(port.consts, len(qs), port.settings,
+                             torch.float32, dev)
+        out.append((sol, loop.rho.clone(), loop.refactors.clone()))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(rig.QP_CASES))
+def test_qp_device_loop_equals_host_driven_on_card(cuda, name):
+    """Every QP solve on the card is one graph whose loop is a WHILE
+    node; on a refactorizing solve, a stall at a max_iter between checks
+    and the Woodbury path's stall it gives the host-driven loop's
+    statuses, iterations, iterates, residuals, rho and refactorization
+    counts bit for bit, for a batch whose members stop at their own
+    checks; the WHILE ran once a chunk of the longest member; a solve
+    inside a caller's capture runs inline and still equals it."""
+    import dataclasses
+
+    from gpu_se_tpu_torch import graphs
+    from gpu_se_tpu_torch.control import qp
+    from gpu_se_tpu_torch.ops import graph_cond as gc
+
+    make, settings, status, refactors = rig.QP_CASES[name]
+    P, A, q, l, u = make()
+    port = qp.DenseQP(P, A, l, u, q, settings=qp.QPSettings(**settings),
+                      device=cuda)
+    qs = np.stack([q, 0.5 * q, -q])
+    ls, us = np.stack([l] * 3), np.stack([u] * 3)
+    port.solve_batch(qs, ls, us)                 # builds the loop
+    gc.reset_iterations(cuda)
+    (dev_sol, dev_rho, dev_ref), (host_sol, host_rho, host_ref) = _qp_pair(
+        port, qs, ls, us, cuda)
+    torch.cuda.synchronize()
+    assert gc.iterations(cuda) == int(dev_sol.iterations.max()) // \
+        port.settings.check_every
+    print(name, dev_sol.status.tolist(), dev_sol.iterations.tolist(),
+          dev_ref.tolist(), host_ref.tolist())
+    for f in dataclasses.fields(dev_sol):
+        assert torch.equal(getattr(dev_sol, f.name),
+                           getattr(host_sol, f.name)), f.name
+    assert torch.equal(dev_rho, host_rho) and torch.equal(dev_ref, host_ref)
+    assert int(dev_sol.status[0]) == status
+    assert int(dev_ref[0]) >= refactors
+    # inline in a caller's graph: warm-up, capture, then replays
+    step = graphs.Graphed(lambda a, b, c: dataclasses.astuple(
+        port.solve_batch(a, b, c)))
+    t = lambda v: torch.as_tensor(v, dtype=torch.float32, device=cuda)
+    for _ in range(3):
+        got = step(t(qs), t(ls), t(us))
+    assert (step.captures, step.replays) == (1, 2)
+    for g, w in zip(got, dataclasses.astuple(host_sol)):
+        assert torch.equal(g, w)
