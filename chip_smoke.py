@@ -72,8 +72,12 @@ Phases, each of which raises on failure:
     update, ``fused_systematic_resample_v2``, uniform weights) at 2^20
     in each of its five ``(window, block)`` geometries, one warm-up and
     10 chained steps each; ``compact`` and ``expand`` must launch once per
-    step, one step must equal the plain route bit for bit, and
-    ``expand`` is timed against its plain version at each block size;
+    step; then, as ``bench_v2.py`` jits it, the step as one graph replay
+    (``graphs.Graphed``), 10 chained steps in each geometry bit-equal to
+    the same step eager from the same state and generator state (one
+    capture a geometry), timed both ways; one step must equal the plain
+    route bit for bit, and ``expand`` is timed against its plain version
+    at each block size;
 11. the GSUKF path: ``GaussianSumUnscentedKalmanFilter.step`` at 2^18
     Gaussians on the bench rig, two warm-ups and 30 chained steps;
     ``compact`` and ``expand`` must launch once per step, the
@@ -94,7 +98,12 @@ Phases, each of which raises on failure:
     assigned from outside computed with, a generator's ``set_state``
     honoured, ``compact`` and ``expand`` counted at every replay; 50
     chained calls graphed and eager timed by CUDA events, with the host
-    ms a call, and each graph's memory pool; every capture or replay
+    ms a call, and each graph's memory pool; three graphed shell steps
+    from host ``u``, ``z`` and ``dt`` (as the harness passes them) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the inputs go through
+    pinned memory (``graphs.as_input``), so a graphed call never waits
+    for the card, and its host ms must be below its device ms;
+    every capture or replay
     that fails raises; then ``graph_cond`` alone (``ops/graph_cond``, the
     conditional nodes of the QP's device loop): a WHILE node of 1000
     iterations over a two-kernel body and an IF never taken, timed a
@@ -173,7 +182,8 @@ Phases, each of which raises on failure:
     ragged exchange, ``a2a_xla``, ``a2a_ring``, ``a2a_ring_v4``: compact
     + expand over the ring), each equal to the plain gather at the same
     segmented ``ends`` bit for bit, its device-to-host copies a step
-    counted by ``torch.profiler``, then 10 chained steps timed, each
+    counted by ``torch.profiler``, then 10 chained steps timed after two
+    untimed ones (a graphed step's captures), each
     drawing its noise by one ``counter_draw`` of samples [0, 2^20); the
     sharded tiled step at 2^20 with both exchanges (bit-equal to each
     other, its resample to the ring route's); the sharded GSUKF step at
@@ -216,7 +226,18 @@ Phases, each of which raises on failure:
     (the reference's) in turns, one
     event of the GSUKF (2^18 a rank, equal to W = 1's at 2^19) and of
     the tiled step; ms per control event by CUDA events and the QP's
-    statuses printed; ``entry.dryrun_multichip(2)`` on this card (every
+    statuses printed. At W = 1 also each sharded entry point its factory
+    graphs (``step.graphed``: the flat ``xla``, ``kernel``,
+    ``a2a_ring_v4``, ``a2a_ring``, the GSUKF ``xla``, ``kernel``,
+    ``a2a_ring``, the tiled ``ring``; the ragged routes must report
+    False) over 5 chained steps at 2^20 a rank (2^18 Gaussians), bit-equal
+    to the same step under ``graphs.disabled``, its kernels counted at
+    each replay (``counter_draw`` inside the graph; the kernel route's
+    ``ends_merge_round`` inside its IF node, counted on the card), timed
+    both ways; and the ``kernel`` control step, one replay an event (the
+    filter step, the estimate, the solve with its WHILE node, the
+    broadcast), 5 events bit-equal to eager (estimates, ``u``, statuses,
+    iterations); ``entry.dryrun_multichip(2)`` on this card (every
     leg of the reference's dry run, finite); and the float64 serial
     engine (``native/serial.py``, built by g++ from the checkout; a
     failed build raises) against the card's flat predict and update at
@@ -224,13 +245,20 @@ Phases, each of which raises on failure:
     ``rig.SERIAL_RTOL`` and ``rig.SERIAL_ATOL``;
 16. (i) the experiments layer (``gpu_se_tpu_torch/results``), through the
     entry points the campaign calls, with the jar under a temporary
-    directory: the PF run sequences (predict, update, resample, step) on
+    directory: first each graphed op (``_filter_bench.build``'s four at
+    2^20 particles, the GSF's predict, update and resample and the
+    sigma-point op at 2^18 Gaussians, ``breakdown_ops``' five at 2^18)
+    over 5 chained calls bit-equal to the same op under
+    ``graphs.disabled``, then 20 chained calls timed both ways by CUDA
+    events; then the PF run sequences (predict, update, resample, step) on
     the card at 2^1, 2^12, 2^20 and 2^23.5 (the top of the reference's
     grid, an odd n) and on the CPU at 2^1 and 2^10, the GSF's (predict,
     update, resample, sigma points) at 2^0, 2^10 and 2^18.5 and the
     timer control, 10 runs each, every time finite and positive, and
     ``compact`` and ``expand`` launched once a call of every op that
-    resamples at n >= 2^12 and never otherwise; ``breakdown_pf`` at 2^18;
+    resamples at n >= 2^12 and never otherwise, the warm-up calls
+    (``_filter_bench.warm``: a graphed op's captures) included;
+    ``breakdown_pf`` at 2^18;
     ``pacf_series`` (8 steps, 20 reps, one CUDA graph replay a rep:
     ``compact`` and ``expand`` 8 times at the warm-up and 8 at each of
     the 21 replays) with its host-ms and device-ms series
@@ -239,12 +267,15 @@ Phases, each of which raises on failure:
     finite, positive and under 105% of the power limit over the window);
     ``get_sim_summary`` and ``get_sim_summary_device`` of the PF at 2^20
     and of the GSF at 2^14 to t = 2 (``compact`` and ``expand`` once a
-    control event); ``mpc_run_seq(n_runs=20)`` and ``device_solve_ms()``
+    control event); ``mpc_run_seq(n_runs=20)`` and ``device_solve_ms()`` (each
+    chain one graph replay, and as a Python loop of solves)
     at dt_control = 0.1 and ``get_simulation_performance(30.0, 0)``.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel's ``launches`` is the sum over the paths, a graph's
-kernels counted at each of its replays. Every kernel's line carries its
+kernels counted at each of its replays, and a kernel inside a
+conditional node's body each time the card ran the body
+(``graphs.settle_counts``). Every kernel's line carries its
 bound: the bytes it must move (each input read once, each output
 written once, counting only the survivors this run's weights leave
 where the kernel reads no other entry, and of a search's keys only
@@ -334,6 +365,7 @@ from gpu_se_tpu_torch.parallel.launch import free_port, run_group  # noqa: E402
 from gpu_se_tpu_torch.utils import PowerMeasurement, RunSequences  # noqa: E402
 from gpu_se_tpu_torch.utils import StateCheckpointer, max_abs_pacf  # noqa: E402
 from gpu_se_tpu_torch.utils import cache as jar_cache  # noqa: E402
+from gpu_se_tpu_torch.results import _filter_bench as exp_fb  # noqa: E402
 from gpu_se_tpu_torch.results import pacf_series as exp_pacf  # noqa: E402
 from gpu_se_tpu_torch.results import sharded_steps  # noqa: E402
 from gpu_se_tpu_torch.results.sharded_steps import counted_draws  # noqa: E402
@@ -381,11 +413,14 @@ RUN_SEQ_RUNS = 50
 RUN_SEQ_CHUNK = 5
 POWER_T_RUN = 5.0         # seconds of steps under PowerMeasurement in (g)
 SHARD_STEPS = 10          # chained sharded steps timed a route in (h)
+SHARD_WARM = 2            # (h): untimed steps before them (the captures)
 # (i) the experiments, at the top of the reference's grids
 EXP_PF_LOG2 = (1.0, 12.0, 20.0, 23.5)
 EXP_PF_CPU_LOG2 = (1.0, 10.0)
 EXP_GSF_LOG2 = (0.0, 10.0, 18.5)
 EXP_RUNS = 10
+EXP_GRAPH_STEPS = 5       # (i): chained calls held bit-equal, graphed-eager
+EXP_GRAPH_TIMED = 20      # (i): chained calls timed, graphed and eager
 EXP_BREAKDOWN_N = 2**18
 EXP_PACF_K, EXP_PACF_REPS = 8, 20
 EXP_POWER_T_RUN = 2.0
@@ -470,11 +505,15 @@ TALLY_COND: list = []
 
 
 def zero_counts() -> None:
+    graphs.settle_counts()
     for _, _, wrapper in KERNELS.values():
         wrapper.launches = 0
 
 
 def read_counts() -> dict[str, int]:
+    """Each kernel's launches, those counted on the card (a conditional
+    node's body, ``graphs.count_on_card``) folded in first."""
+    graphs.settle_counts()
     return {name: k[2].launches for name, k in KERNELS.items()}
 
 
@@ -1664,8 +1703,10 @@ def phase_profile(dev, seed: int, card: str) -> None:
 def phase_v2_path(dev, seed: int, card: str):
     """The flat PF step of ``scripts/bench_v2.py`` through
     ``fused_systematic_resample_v2`` at 2^20 on the bench rig, in each of
-    its geometries. Returns ``expand``'s error against its plain version
-    at each of the path's block sizes."""
+    its geometries, eager; then, as ``bench_v2.py`` jits it, the step as
+    one graph replay (``graphs.Graphed``) held bit-equal to the eager
+    chain and timed against it. Returns ``expand``'s error against its
+    plain version at each of the path's block sizes."""
     x0, state_pdf, meas_pdf = bench_rig(dev)
     f, g = bio.homeostatic_des, bio.static_outputs
     u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
@@ -1681,10 +1722,10 @@ def phase_v2_path(dev, seed: int, card: str):
 
     def step(s, window, block):
         s = predict_update(s)
-        r = torch.rand((), generator=gen, device=dev)
+        r = torch.rand((), generator=s.generator, device=dev)
         parts = rp2.fused_systematic_resample_v2(s.particles, s.weights, r,
                                                  window=window, block=block)
-        return pf.PFState(parts, uniform, gen)
+        return pf.PFState(parts, uniform, s.generator)
 
     for window, block in V2_GEOMETRIES:
         zero_counts()
@@ -1712,6 +1753,28 @@ def phase_v2_path(dev, seed: int, card: str):
             f"(CUDA events, {card}); launches "
             f"{ {k: v for k, v in counts.items() if v} }; point estimate "
             f"{[round(v, 5) for v in est.tolist()]}")
+
+    # the step graphed, as bench_v2.py jits it: each geometry's graph
+    # against the eager chain from the same state and generator state
+    step_g = graphs.Graphed(step)
+    v2_times = {}
+    for window, block in V2_GEOMETRIES:
+        path = f"step W={window} B={block}"
+        zero_counts()
+        a, b = chained_pair(path, lambda s: step_g(s, window, block), state,
+                            ROUTE_STEPS, "v2", step_g)
+        expect_counts(f"{path}, graphed and eager", read_counts(),
+                      {"compact": 2 * ROUTE_STEPS, "expand": 2 * ROUTE_STEPS})
+        v2_times[path] = timed_pair(path,
+                                    lambda s: step_g(s, window, block), a, b,
+                                    card, GRAPH_TIMED, "v2", step_g)
+        state = a
+    if step_g.captures != len(V2_GEOMETRIES):
+        raise AssertionError(f"v2: {step_g.captures} captures")
+    log(f"v2 path: the step graphed bit-equal to eager over {ROUTE_STEPS} "
+        f"chained steps in each geometry, one capture each; pool "
+        f"{step_g.pool_bytes() / 2**20:.1f} MiB ({card})")
+    step_g.clear()
 
     # one step against the plain route: the same r, the same ends
     upd = predict_update(state)
@@ -1750,7 +1813,7 @@ def phase_v2_path(dev, seed: int, card: str):
             f"{p1:.4f}/{p2:.4f} ms (device time, mean of {REPS}, {card}); "
             f"bound {expand_bound(N, m, 5, block)[0]:.4f} ms ({m} "
             f"survivors of {N})")
-    return err
+    return err, v2_times
 
 
 def phase_gsukf(dev, seed: int, card: str):
@@ -1887,21 +1950,22 @@ def tensors_of(tree) -> list:
     return []
 
 
-def same(path: str, got, want) -> None:
+def same(path: str, got, want, phase: str = "(k)") -> None:
     """Raise unless ``got`` and ``want`` hold bit-equal tensors and, for
     states, generators in the same position."""
     g, w = tensors_of(got), tensors_of(want)
     if len(g) != len(w) or not all(torch.equal(a, b) for a, b in zip(g, w)):
-        raise AssertionError(f"(k) {path}: graphed differs from eager")
+        raise AssertionError(f"{phase} {path}: graphed differs from eager")
     gens = [getattr(x, "generator", None) for x in (got, want)]
     if None not in gens and not torch.equal(gens[0].get_state(),
                                             gens[1].get_state()):
-        raise AssertionError(f"(k) {path}: the generators part")
+        raise AssertionError(f"{phase} {path}: the generators part")
 
 
-def graphed_vs_eager(path: str, graphed, eager, card: str) -> dict:
-    """ms a call by CUDA events over ``GRAPH_TIMED`` chained calls after
-    one warm-up call, and host ms a call (the calls' enqueue, before the
+def graphed_vs_eager(path: str, graphed, eager, card: str,
+                     calls: int = GRAPH_TIMED, phase: str = "(k)") -> dict:
+    """ms a call by CUDA events over ``calls`` chained calls after one
+    warm-up call, and host ms a call (the calls' enqueue, before the
     synchronise): eager, graphed, graphed, eager; the better of each
     two."""
     def timed(fn):
@@ -1911,24 +1975,57 @@ def graphed_vs_eager(path: str, graphed, eager, card: str) -> dict:
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        for _ in range(GRAPH_TIMED):
+        for _ in range(calls):
             fn()
         t1 = time.perf_counter()
         end.record()
         torch.cuda.synchronize()
-        return (start.elapsed_time(end) / GRAPH_TIMED,
-                (t1 - t0) * 1e3 / GRAPH_TIMED)
+        return (start.elapsed_time(end) / calls, (t1 - t0) * 1e3 / calls)
 
     e1, g1, g2, e2 = timed(eager), timed(graphed), timed(graphed), \
         timed(eager)
     out = {"eager_ms": min(e1[0], e2[0]), "graphed_ms": min(g1[0], g2[0]),
            "eager_host_ms": min(e1[1], e2[1]),
            "graphed_host_ms": min(g1[1], g2[1])}
-    log(f"(k) {path}: {GRAPH_TIMED} chained calls, eager {e1[0]:.4f}/"
+    log(f"{phase} {path}: {calls} chained calls, eager {e1[0]:.4f}/"
         f"{e2[0]:.4f} ms a call (host {e1[1]:.4f}/{e2[1]:.4f}), graphed "
         f"{g1[0]:.4f}/{g2[0]:.4f} ms (host {g1[1]:.4f}/{g2[1]:.4f}) (CUDA "
         f"events, {card})")
     return out
+
+
+def chained_pair(path: str, step, state, steps: int, phase: str,
+                 graphed=None):
+    """``steps`` chained calls of ``step`` (a function of the state) from
+    ``state``, and of the same step from a fork of it under
+    ``graphs.disabled`` of its graphed function ``graphed`` (default:
+    ``step``), bit-equal after each (states and generators). Returns the
+    two last states."""
+    a, b = state, graphs.fork(state)
+    for i in range(steps):
+        a = step(a)
+        with graphs.disabled(graphed or step):
+            b = step(b)
+        same(f"{path}, call {i}", a, b, phase)
+    return a, b
+
+
+def timed_pair(path: str, step, a, b, card: str, calls: int, phase: str,
+               graphed=None) -> dict:
+    """:func:`graphed_vs_eager` of ``step`` chained from ``a`` (graphed)
+    and ``b`` (under ``graphs.disabled`` of ``graphed``, default
+    ``step``)."""
+    hold = {"g": a, "e": b}
+
+    def graphed_call():
+        hold["g"] = step(hold["g"])
+
+    def eager_call():
+        with graphs.disabled(graphed or step):
+            hold["e"] = step(hold["e"])
+
+    return graphed_vs_eager(path, graphed_call, eager_call, card, calls,
+                            phase)
 
 
 def unchanged(path: str, held: list, calls) -> None:
@@ -2136,6 +2233,24 @@ def phase_graphed_shell(name: str, make, new_meas, dev, card: str,
 
     times = graphed_vs_eager(f"{name} step", lambda: f_g.step(u, z, dt),
                              eager_call, card)
+    # a graphed call waits for nothing: inputs from the host, as the
+    # harness passes them, go through pinned memory (graphs.as_input)
+    u_h, z_h = u.cpu().numpy().astype(np.float64), z.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            f_g.step(u_h, z_h, dt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if times["graphed_host_ms"] >= times["graphed_ms"]:
+        raise AssertionError(
+            f"(k) {name}: host {times['graphed_host_ms']:.4f} ms a graphed "
+            f"call, not below device {times['graphed_ms']:.4f} ms")
+    log(f"(k) {name}: 3 graphed steps from host u, z and dt under "
+        f"set_sync_debug_mode('error'), no synchronise; host "
+        f"{times['graphed_host_ms']:.4f} ms against device "
+        f"{times['graphed_ms']:.4f} ms a graphed call ({card})")
     times["pool_mib"] = {k: v.pool_bytes() / 2**20
                          for k, v in f_g.graphs.items()}
     log(f"(k) {name}: predict, update, resample, step and moments graphed "
@@ -3076,8 +3191,11 @@ def phase_instrumentation(dev, seed: int, card: str) -> dict:
 # ----------------------------------------------------------------------
 def chained_ms(step, state, steps: int = SHARD_STEPS):
     """``(ms per step by CUDA events, last state)`` of ``steps`` chained
-    calls of ``step`` after one untimed call."""
-    state = step(state)
+    calls of ``step`` after ``SHARD_WARM`` untimed calls (a graphed
+    step's captures: a state whose layout the step changes keys a second
+    graph)."""
+    for _ in range(SHARD_WARM):
+        state = step(state)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3151,27 +3269,20 @@ def w2_resample(mesh, name, parts, w, r):
                              sharded._FLAT_ROUTES[name])[0]
 
 
+def shard_entry(mesh, name: str, seed: int, width=None):
+    """``(state, fn, step)`` of the entry point ``name`` on this rank: its
+    slice of one global state of 2^20 particles (2^18 Gaussians) for
+    each of ``width`` ranks (default: the mesh's), from
+    ``results/sharded_steps.entry_step``."""
+    return sharded_steps.entry_step(mesh, name, seed + 22,
+                                    bench_rig(mesh.device), width)
+
+
 def w2_step(mesh, name, seed: int):
     """``(state, step)`` of one of ``W2_STEPS`` on this rank: its slice of
-    the bench rig's global state of N_W2 particles (N_BANK_W2 Gaussians),
-    drawn from the seed on the mesh's device, and the entry point's step
-    on it."""
-    dev = mesh.device
-    x0, state_pdf, meas_pdf = bench_rig(dev)
-    f, g, u, z, dt = shard_step_args(dev)
-    gen = torch.Generator(device=dev).manual_seed(seed + 22)
-    kind, route = name.split()
-    if kind == "flat":
-        state = par.shard_pf_state(pf.init(gen, N_W2, x0), mesh)
-        fn = par.make_shard_map_step(mesh, f, g, resample_impl=route)
-    elif kind == "gsukf":
-        state = par.shard_gsukf_state(
-            gsf.init(gen, N_BANK_W2, x0, state_pdf), mesh)
-        fn = par.make_shard_map_gsukf_step(mesh, f, g, resample_impl=route)
-    else:
-        state = par.shard_tiled_pf_state(pft.init(gen, N_W2, x0), mesh)
-        fn = par.make_shard_map_tiled_step(mesh, f, g, exchange=route)
-    return state, lambda s: fn(s, u, z, dt, state_pdf, meas_pdf)
+    W = 2's global state of N_W2 particles (N_BANK_W2 Gaussians)."""
+    state, _, step = shard_entry(mesh, name, seed, 2)
+    return state, step
 
 
 def w2_fields(name: str, state):
@@ -3266,9 +3377,10 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
                 lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
                 pf.PFState(start.particles, start.weights, gen(1)))
         check_draws(f"sharded flat step, {name}", draws, 0, N, 1)
+        # from_noise twice, then the chained steps and their warm-up
         expect_counts(f"sharded flat step, {name}", read_counts(),
-                      {**{k: SHARD_STEPS + 3 for k in kernels},
-                       "counter_draw": SHARD_STEPS + 1})
+                      {**{k: SHARD_STEPS + SHARD_WARM + 2 for k in kernels},
+                       "counter_draw": SHARD_STEPS + SHARD_WARM})
         if not torch.isfinite(last.particles).all():
             raise AssertionError(f"sharded flat {name}: non-finite")
         log(f"multi-device (h), W=1 NCCL, flat step {name} at n={N}: "
@@ -3287,8 +3399,9 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
         ms[f"tiled {exchange}"], last = chained_ms(
             lambda s: step(s, u, z, dt, state_pdf, meas_pdf),
             par.shard_tiled_pf_state(tiled0, mesh))
+        calls = SHARD_STEPS + SHARD_WARM
         expect_counts(f"sharded tiled step, {exchange}", read_counts(),
-                      {"compact": SHARD_STEPS + 1, "expand": SHARD_STEPS + 1})
+                      {"compact": calls, "expand": calls})
         outs[exchange] = last.x
         log(f"multi-device (h), W=1 NCCL, tiled step {exchange} at n={N}: "
             f"{ms[f'tiled {exchange}']:.4f} ms/step ({card})")
@@ -3322,8 +3435,10 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
                 steps=3)
         check_draws(f"sharded GSUKF step, {name}", draws, 0, n_b,
                     2 * nx + 1)
+        # from_noise, then 3 chained steps and their warm-up
         expect_counts(f"sharded GSUKF step, {name}", read_counts(),
-                      {**{k: 5 for k in kernels}, "counter_draw": 4})
+                      {**{k: 4 + SHARD_WARM for k in kernels},
+                       "counter_draw": 3 + SHARD_WARM})
         if not torch.isfinite(last.covariances).all():
             raise AssertionError(f"sharded GSUKF {name}: non-finite")
         log(f"multi-device (h), W=1 NCCL, GSUKF step {name} at N={n_b}: "
@@ -3467,6 +3582,21 @@ CTRL_OTHERS = {"gsukf": ("gsukf", "kernel", N_BANK,
                          ("ends_merge_round", "counter_draw")),
                "tiled": ("tiled", "ragged", N, ("compact", "expand"))}
 CTRL_TIMEOUT_S = 300
+# (j): the sharded entry points at W = 1 whose factories graph them, and
+# the kernels each launches a step; those that stay eager (the ragged
+# exchange reads its sizes on the host)
+SHARD_GRAPHED = {
+    "flat xla": ("counter_draw",),
+    "flat kernel": ("ends_merge_round", "counter_draw"),
+    "flat a2a_ring_v4": ("compact", "expand", "counter_draw"),
+    "flat a2a_ring": ("counter_draw",),
+    "gsukf xla": ("counter_draw",),
+    "gsukf kernel": ("ends_merge_round", "counter_draw"),
+    "gsukf a2a_ring": ("counter_draw",),
+    "tiled ring": ("compact", "expand"),
+}
+SHARD_EAGER = ("flat a2a", "flat a2a_xla", "gsukf a2a", "tiled ragged")
+SHARD_GRAPH_STEPS = 5     # (j): chained steps held bit-equal, graphed-eager
 
 
 def ctrl_args(mpc, dev):
@@ -3683,6 +3813,8 @@ def phase_control(dev, seed: int, card: str, s, mpc_cpu) -> dict:
                 w1[f"{name} {n_glob}"] = recs
                 log(f"sharded control (j), W=1 NCCL, {name} ({route}) at "
                     f"n={n_glob}: {ctrl_line(recs)} ({card})")
+        metric["w1_graphed_vs_eager"] = ctrl_graphed(mesh, mpc, lin, seed,
+                                                     card)
     finally:
         dist.destroy_process_group()
     metric["w1_ms"] = {k: [r["ms"] for r in v] for k, v in w1.items()}
@@ -3753,6 +3885,86 @@ def phase_control(dev, seed: int, card: str, s, mpc_cpu) -> dict:
     return metric
 
 
+def ctrl_graphed(mesh, mpc, lin, seed: int, card: str) -> dict:
+    """(j) at W = 1 (NCCL, one rank): every sharded entry point whose
+    factory graphs it (``step.graphed``; the ragged routes must say
+    False) over ``SHARD_GRAPH_STEPS`` chained steps at 2^20 particles a
+    rank (2^18 Gaussians), bit-equal to the same step under
+    ``graphs.disabled``, its kernels counted at each replay (the kernel
+    route's ``ends_merge_round`` by the card, inside its IF node), then
+    ms a step both ways; and the control step of the ``kernel`` route,
+    one replay an event, against the same step eager over
+    ``CTRL_EVENTS`` events. Returns the times."""
+    out = {}
+    for name in SHARD_EAGER:
+        _, fn, _ = shard_entry(mesh, name, seed)
+        if fn.graphed:
+            raise AssertionError(f"(j) {name}: graphed at W=1, but its "
+                                 f"exchange reads the host")
+    for name, kernels in SHARD_GRAPHED.items():
+        state, fn, step = shard_entry(mesh, name, seed)
+        if not fn.graphed:
+            raise AssertionError(f"(j) {name}: not graphed at W=1 (NCCL)")
+        zero_counts()
+        a, b = chained_pair(f"W=1 {name}", step, state, SHARD_GRAPH_STEPS,
+                            "(j)", fn)
+        expect_counts(f"(j) W=1 {name}, graphed and eager", read_counts(),
+                      {k: 2 * SHARD_GRAPH_STEPS for k in kernels})
+        # every call a capture (a key's first: its warm-up) or a replay;
+        # a key is also the inputs' strides, which the kernel route's
+        # output (a view of its merge state) changes once
+        if (fn.captures + fn.replays != SHARD_GRAPH_STEPS
+                or fn.replays < SHARD_GRAPH_STEPS - 2):
+            raise AssertionError(f"(j) {name}: {fn.captures} captures, "
+                                 f"{fn.replays} replays")
+        out[name] = timed_pair(f"W=1 {name}", step, a, b, card,
+                               SHARD_STEPS, "(j)", fn)
+    log(f"sharded control (j), W=1 NCCL: {len(SHARD_GRAPHED)} sharded "
+        f"steps one graph replay a step, bit-equal to eager over "
+        f"{SHARD_GRAPH_STEPS} chained steps; the kernel route's skips IF "
+        f"nodes (ends_merge_round counted on the card); counter_draw "
+        f"inside the graphs; {list(SHARD_EAGER)} eager by design ({card})")
+
+    f, g = bio.homeostatic_des, bio.static_outputs
+    if make_sharded_control_step(mesh, mpc, lin, f, g, dt=CTRL_DT,
+                                 resample_impl="a2a").graphed:
+        raise AssertionError("(j) the a2a control step is graphed")
+    step = make_sharded_control_step(mesh, mpc, lin, f, g, dt=CTRL_DT,
+                                     resample_impl="kernel")
+    if not step.graphed:
+        raise AssertionError("(j) the kernel control step is not graphed")
+
+    def eager(*args):
+        with graphs.disabled(step):
+            return step(*args)
+
+    zero_counts()
+    recs = {"graphed": ctrl_events(mesh, step, ctrl_state("pf", N, mesh, seed),
+                                   mpc),
+            "eager": ctrl_events(mesh, eager, ctrl_state("pf", N, mesh, seed),
+                                 mpc)}
+    expect_counts("(j) W=1 control step, graphed and eager", read_counts(),
+                  {"ends_merge_round": 2 * CTRL_EVENTS,
+                   "counter_draw": 2 * CTRL_EVENTS})
+    ctrl_same("W=1 control step graphed vs eager", recs["graphed"],
+              recs["eager"])
+    for a, b in zip(recs["graphed"], recs["eager"]):
+        if (a["status"], a["iterations"]) != (b["status"], b["iterations"]):
+            raise AssertionError(f"(j) control step graphed vs eager: {a} "
+                                 f"!= {b}")
+    if (step.captures + step.replays != CTRL_EVENTS
+            or step.replays < CTRL_EVENTS - 2):
+        raise AssertionError(f"(j) control step: {step.captures} captures, "
+                             f"{step.replays} replays")
+    out["control kernel"] = {k: [r["ms"] for r in v] for k, v in recs.items()}
+    log(f"sharded control (j), W=1 NCCL, control step (kernel) at n={N}, "
+        f"one graph replay an event (filter step, estimate, solve with its "
+        f"WHILE node, broadcast), bit-equal to eager: graphed "
+        f"{ctrl_line(recs['graphed'])}; eager {ctrl_line(recs['eager'])} "
+        f"({card})")
+    return out
+
+
 def phase_serial_oracle(dev, card: str) -> dict:
     """The card's flat ``predict_from_noise`` and ``update`` at
     ``rig.SERIAL_N`` particles, fed float32 noise drawn on the host,
@@ -3808,9 +4020,11 @@ def exp_run_seqs(name: str, entries, log2s, gpu: bool, card: str) -> dict:
         for log2 in log2s:
             n = int(2.0 ** log2)
             zero_counts()
-            _, (seq,) = fn(np.array([n]), EXP_RUNS, gpu)
+            with exp_fb.warm_calls() as warms:
+                _, (seq,) = fn(np.array([n]), EXP_RUNS, gpu)
+            # the warm-up calls (a graphed op's captures) and the runs
             exp_counts(f"(i) {name} {op}, n={n}, gpu={gpu}", n,
-                       EXP_RUNS + 1 if gpu else 0, resamples)
+                       EXP_RUNS + sum(warms) if gpu else 0, resamples)
             if seq.shape != (EXP_RUNS,) or not (np.isfinite(seq).all()
                                                 and (seq > 0).all()):
                 raise AssertionError(f"(i) {name} {op} n={n}: {seq}")
@@ -3861,6 +4075,45 @@ def phase_experiments(dev, card: str) -> dict:
     return metric
 
 
+def exp_graphed(card: str) -> dict:
+    """(i) Each graphed op of the experiments against its eager form
+    (``graphs.disabled``) from the same state and generator state:
+    ``build``'s four at 2^20 particles (``pf``) and the GSF's predict,
+    update and resample at 2^18 Gaussians, the breakdown's at 2^18, the
+    sigma-point op at 2^18; ``EXP_GRAPH_STEPS`` chained calls bit-equal,
+    then ms a call both ways; ``compact`` and ``expand`` once a call of
+    every op that resamples, replays included. Each op's graphs are
+    freed before the next's."""
+    pf_state, pf_ops = exp_fb.build("pf", N, True)
+    gsf_state, gsf_ops = exp_fb.build("gsf", N_BANK, True)
+    bd_state, bd_ops = exp_fb.breakdown_ops(EXP_BREAKDOWN_N, True)
+    groups = [(f"PF {k} n={N}", op, pf_state, k in ("resample", "step"))
+              for k, op in pf_ops.items()]
+    groups += [(f"GSF {k} N={N_BANK}", gsf_ops[k], gsf_state,
+                k == "resample") for k in ("predict", "update", "resample")]
+    groups += [(f"GSF sigma_points N={N_BANK}", exp_gsf.sigma_points_op,
+                gsf_state, False)]
+    groups += [(f"breakdown {k} n={EXP_BREAKDOWN_N}", op, bd_state,
+                k == "full_step") for k, op in bd_ops.items()]
+    out = {}
+    for path, op, state, resamples in groups:
+        zero_counts()
+        a, b = chained_pair(f"experiments {path}", op, state,
+                            EXP_GRAPH_STEPS, "(i)")
+        out[path] = timed_pair(f"experiments {path}", op, a, b, card,
+                               EXP_GRAPH_TIMED, "(i)")
+        calls = 2 * (EXP_GRAPH_STEPS + 2 * (EXP_GRAPH_TIMED + 1))
+        expect_counts(f"(i) graphed {path}", read_counts(),
+                      {"compact": calls, "expand": calls} if resamples
+                      else {})
+        if op.replays < 2 * EXP_GRAPH_TIMED:
+            raise AssertionError(f"(i) {path}: {op.replays} replays")
+        exp_fb.release(op)
+    log(f"experiments (i): {len(groups)} graphed ops bit-equal to eager "
+        f"over {EXP_GRAPH_STEPS} chained calls ({card})")
+    return out
+
+
 def experiments(dev, card: str) -> dict:
     pf_entries = [("predict", exp_pf.predict_run_seq, False),
                   ("update", exp_pf.update_run_seq, False),
@@ -3871,6 +4124,7 @@ def experiments(dev, card: str) -> dict:
                    ("resample", exp_gsf.resample_run_seq, True),
                    ("sigma_points", exp_gsf.sigma_points_run_seq, False)]
     metric = {"metric": "experiments", "unit": "ms",
+              "graphed_vs_eager": exp_graphed(card),
               "pf_run_seq_card": exp_run_seqs("PF", pf_entries, EXP_PF_LOG2,
                                               True, card),
               "pf_run_seq_cpu": exp_run_seqs("PF", pf_entries,
@@ -3886,9 +4140,12 @@ def experiments(dev, card: str) -> dict:
     # the chunked sequences' pacf against the series built to pass it
     _, (chunked,) = exp_pf.step_run_seq(np.array([N]), EXP_RUNS, True)
     zero_counts()
-    rows = exp_pf.breakdown_run_seqs(EXP_BREAKDOWN_N, EXP_RUNS, True)
+    with exp_fb.warm_calls() as warms:
+        rows = exp_pf.breakdown_run_seqs(EXP_BREAKDOWN_N, EXP_RUNS, True)
+    # the full step's, the last op timed
+    calls = EXP_RUNS + warms[-1]
     expect_counts("(i) breakdown", read_counts(),
-                  {"compact": EXP_RUNS + 1, "expand": EXP_RUNS + 1})
+                  {"compact": calls, "expand": calls})
     metric["breakdown_ms"] = {k: float(np.median(v)) * 1e3
                               for k, v in rows.items()}
     zero_counts()
@@ -3935,12 +4192,14 @@ def experiments(dev, card: str) -> dict:
         + " ".join(f"{t:.3f}" for t in series["graph_series_ms"]))
 
     zero_counts()
-    _, ((steps, (e_cpu, e_card)),) = exp_power.step_energy(
-        np.array([N]), EXP_POWER_T_RUN, True)
+    with exp_fb.warm_calls() as warms:
+        _, ((steps, (e_cpu, e_card)),) = exp_power.step_energy(
+            np.array([N]), EXP_POWER_T_RUN, True)
+    calls = steps + sum(warms)
     expect_counts("(i) energy", read_counts(),
-                  {"compact": steps + 1, "expand": steps + 1})
+                  {"compact": calls, "expand": calls})
     (_, cpu_j, card_j), = exp_power.per_step([N], [(steps, (e_cpu, e_card))])
-    samples = exp_power.step_energy.func.func.last_samples
+    samples = exp_power.step_energy.raw.last_samples
     span = float(samples[0, -1] - samples[0, 0])
     limit = power_limit_w(card)
     if not (np.isfinite(e_card) and e_card > 0
@@ -3975,6 +4234,7 @@ def experiments(dev, card: str) -> dict:
     zero_counts()
     times = exp_mpc.mpc_run_seq(n_runs=EXP_MPC_RUNS)
     solve_ms, iters = exp_mpc.device_solve_ms()
+    eager_solve_ms, _ = exp_mpc.device_solve_ms(graphed=False)
     itse = exp_pvcp.get_simulation_performance(30.0, 0)
     expect_counts("(i) MPC", read_counts(), {})
     if not (times.shape == (EXP_MPC_RUNS,) and (times > 0).all()
@@ -3982,12 +4242,15 @@ def experiments(dev, card: str) -> dict:
         raise AssertionError(f"(i) MPC: {times}, {solve_ms}, {itse}")
     metric["mpc"] = {"k_step_median_ms": float(np.median(times[1:])) * 1e3,
                      "device_solve_ms": solve_ms,
+                     "eager_chain_solve_ms": eager_solve_ms,
                      "cold_start_iterations": iters,
                      "itse_dt_control_30": float(itse)}
     log(f"experiments (i), MPC at dt_control={DT_CONTROL}: K.step median "
         f"{metric['mpc']['k_step_median_ms']:.3f} ms over {EXP_MPC_RUNS - 1}"
         f" warm solves, device solve {solve_ms:.3f} ms (slope of chained "
-        f"solves), cold start {iters:.0f} iterations; ITSE at dt_control=30"
+        f"solves, each chain one graph replay; {eager_solve_ms:.3f} ms as a "
+        f"Python loop of the solves' replays), cold start {iters:.0f} "
+        f"iterations; ITSE at dt_control=30"
         f" {itse:.6g} ({card})")
     return metric
 
@@ -4020,10 +4283,11 @@ def main() -> int:
     merge_errs, merge_times, merge_bounds = phase_merge_times(
         dev, card, state, r, args.seed)
     phase_profile(dev, args.seed, card)
-    v2_err = phase_v2_path(dev, args.seed, card)
+    v2_err, v2_times = phase_v2_path(dev, args.seed, card)
     errs["expand"] = max(errs["expand"], v2_err)
     gsukf_metric = phase_gsukf(dev, args.seed, card)
     graph_metric = phase_graphs(dev, args.seed, card)
+    graph_metric["v2_2^20"] = v2_times
     cond_ms, cond_plain_ms, cond_bound, cond_metric = phase_graph_cond(
         dev, card)
     graph_metric["graph_cond"] = cond_metric

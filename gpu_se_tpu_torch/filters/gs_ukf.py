@@ -396,7 +396,8 @@ class GaussianSumUnscentedKalmanFilter:
         self._moments_cache = None
 
     def _t(self, v) -> torch.Tensor:
-        return torch.as_tensor(v, dtype=torch.float32, device=self.device)
+        # a host value goes to the card without waiting for it
+        return graphs.as_input(v, self.device)
 
     # -- reference API --------------------------------------------------
     def predict(self, u, dt):

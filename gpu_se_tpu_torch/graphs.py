@@ -58,12 +58,22 @@ its whole device loop.
 The kernel wrappers (:data:`KERNELS`) count launches in Python, where
 they enqueue: during a capture nothing reaches the card, so the counts a
 capture adds are taken back, kept as the graph's launches, and added at
-every replay.
+every replay. A launch inside a conditional node's body runs or not as
+the card decides: such a body adds one to a count on the card
+(:func:`count_on_card`), which :func:`settle_counts` folds into the
+wrapper's count, so a count read after it is of launches that ran.
+
+A value from the host (a Python float, a numpy array) that a graphed
+call takes goes to the card through :func:`as_input`: staged in pinned
+memory and copied without waiting for the card, where
+``torch.as_tensor(v, device=card)`` copies from pageable memory and
+synchronises.
 """
 from __future__ import annotations
 
 import dataclasses
 import gc
+import weakref
 from typing import Any, Callable, Optional
 
 import torch
@@ -80,6 +90,57 @@ KERNELS = (_rp4.compact, _rp4.expand, _rpb.ends_merge_round,
 
 
 _DISABLED: list = []     # the open ``disabled`` contexts' sets, or None
+# owner -> (wrapper, launches a body run, int64 count); an entry goes
+# with its owner
+_CARD_COUNTS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def count_on_card(owner, wrapper, launches: int,
+                  count: torch.Tensor) -> None:
+    """Register ``count``, a 0-d int64 tensor on the card that a
+    conditional body adds one to each time it runs, as ``launches``
+    launches of ``wrapper``'s kernel a run, for as long as ``owner`` (the
+    object that holds the body) lives."""
+    _CARD_COUNTS[owner] = (wrapper, launches, count)
+
+
+def settle_counts() -> None:
+    """Add the runs counted on the card since the last call to their
+    wrappers' ``launches`` and zero the counts: one read of the card
+    (call it outside a run, before the counts are read or zeroed)."""
+    entries = list(_CARD_COUNTS.values())
+    if not entries:
+        return
+    runs = torch.stack([count for _, _, count in entries]).tolist()
+    for (wrapper, launches, count), n in zip(entries, runs):
+        wrapper.launches += launches * n
+        count.zero_()
+
+
+def fork(state):
+    """A copy of a filter state (its tensors cloned, layouts kept) with a
+    generator of its own in the same state: the input of an eager run
+    held against a graphed run from ``state``."""
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return dataclasses.replace(state, generator=gen, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state) if f.name != "generator"})
+
+
+def as_input(v, device: torch.device) -> torch.Tensor:
+    """``v`` as a float32 tensor on ``device``. A tensor already on the
+    card is taken as it is; a host value bound for the card is converted
+    on the host, staged in pinned memory and copied with
+    ``non_blocking=True``, so the call does not wait for the card (the
+    caching host allocator keeps the pinned block until the copy has
+    run). On the CPU, ``torch.as_tensor(v, dtype=float32)``."""
+    device = torch.device(device)
+    if device.type != "cuda" or (isinstance(v, torch.Tensor)
+                                 and v.device.type == "cuda"):
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+    host = torch.as_tensor(v, dtype=torch.float32, device="cpu")
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 class disabled:
@@ -283,7 +344,7 @@ class Graphed:
 
     def __init__(self, fn: Callable, key: Optional[Callable] = None,
                  copy_out: bool = True, warm: bool = True):
-        self.fn = fn
+        self.fn = self.__wrapped__ = fn
         self.key = key
         self.copy_out = copy_out
         self.warm = warm
@@ -343,6 +404,10 @@ class Graphed:
         return _map_tensors(entry.out,
                             lambda o: passed.get(id(o)) if id(o) in passed
                             else _like(o))
+
+    def clear(self) -> None:
+        """Drop every captured graph, its static buffers and its pool."""
+        self.entries.clear()
 
     def pool_bytes(self) -> int:
         """The memory pools of the graphs held, bytes (the card's reserved

@@ -23,12 +23,20 @@ device. Here every rank runs:
 
 The step returns ``ctrl + u_bar`` whatever the solve's status, as the
 reference's does; the caller reads ``sol.status``.
+
+As the reference jits its control step, the step is one CUDA graph
+replay a call wherever its filter step is graphed (``step.graphed``,
+``parallel/sharded.graphable``: a mesh of one rank, and a route that
+reads nothing on the host): the filter step, the global
+estimate, the solve with its WHILE node (``control/qp``) and the
+broadcast in one graph. Elsewhere it runs eagerly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.control.mpc import make_device_step
 from gpu_se_tpu_torch.control.qp import QPSolution
 from gpu_se_tpu_torch.filters.gs_ukf import GSUKFState
@@ -76,7 +84,9 @@ def make_sharded_control_step(mesh: Mesh, mpc, lin_model, f, g, *, dt,
     ``step.from_noise(state, um1, z, bias, warm_v, warm_y,
     measurement_pdf, noise, r)`` takes this rank's slice of the global
     noise and ``r`` instead, as the sharded steps' ``from_noise`` does,
-    and keeps ``state``'s generator."""
+    and keeps ``state``'s generator. ``step.graphed`` says whether the
+    step is one graph replay a call (module docstring); ``from_noise``
+    runs eagerly."""
     if mpc.qp.device != mesh.device:
         raise ValueError(f"the MPC's constants lie on {mpc.qp.device}, the "
                          f"mesh's rank on {mesh.device}")
@@ -111,9 +121,12 @@ def make_sharded_control_step(mesh: Mesh, mpc, lin_model, f, g, *, dt,
                          its[0].to(torch.int32), prim[0], dual[0])
         return state, ctrl + u_bar, y_pred, sol
 
+    # the filter step's own function: a graph of the control step holds it
+    filter_fn = fstep.fn if fstep.graphed else fstep
+
     def step(state, um1, z, bias, warm_v, warm_y, state_pdf,
              measurement_pdf):
-        state = fstep(state, um1, z, dt, state_pdf, measurement_pdf)
+        state = filter_fn(state, um1, z, dt, state_pdf, measurement_pdf)
         return control(state, um1, bias, warm_v, warm_y)
 
     def from_noise(state, um1, z, bias, warm_v, warm_y, measurement_pdf,
@@ -131,5 +144,8 @@ def make_sharded_control_step(mesh: Mesh, mpc, lin_model, f, g, *, dt,
             state = TiledPFState(fstep.from_noise(state.x, *args), gen)
         return control(state, um1, bias, warm_v, warm_y)
 
+    if fstep.graphed:
+        step = graphs.Graphed(step)
     step.from_noise = from_noise
+    step.graphed = fstep.graphed
     return step

@@ -37,7 +37,10 @@ every route gives the same rows:
   :func:`_ring_gather`); no kernel;
 * ``"kernel"`` (``"kernel_interpret"`` maps to it): the blocks are
   broadcast in ascending global order into the port's ``ends_merge_round``
-  (kernel A), with the reference's two data-dependent skips;
+  (kernel A), with the reference's two data-dependent skips: read on the
+  host when the step runs eagerly, IF nodes of the graph
+  (``ops/graph_cond.if_then``) when it is captured, as the reference
+  takes them with ``lax.cond`` inside its program;
 * the survivor all-to-all: each rank compacts its survivors (``ends_k >
   ends_{k-1}``), sends each destination the one contiguous run whose
   slot intervals meet its slots, and merges what it receives once.
@@ -53,6 +56,19 @@ reads the ``(W, W)`` sizes matrix to the host once a step
 (``all_to_all_single`` takes Python ints); the ring exchange reads
 nothing. On the CPU the wrappers of K1, K2 and A take their plain
 versions, as everywhere in the port.
+
+One dispatch a step. As the reference returns ``jax.jit`` of each
+shard-map factory's step, each ``make_shard_map_*`` factory returns its
+step as a :class:`~gpu_se_tpu_torch.graphs.Graphed` function (one CUDA
+graph replay a call on the card; on the CPU it runs directly) wherever
+the step reads nothing on the host and its collectives can be captured:
+a mesh of one rank (every collective the identity), and every route but
+the ragged exchange, whose ``all_to_all_single`` takes the sizes as
+Python ints. A gloo group copies every buffer through the host, so its
+steps run eagerly; an NCCL group of more than one rank also runs
+eagerly until its captured collectives have been held to one rank's
+step on cards. The factory decides this from the route and the mesh's
+size and says so in ``step.graphed``; a capture that fails raises.
 
 Two integers mark padding and are kept apart: :data:`_IBIG` (``2**30``,
 above any global slot index) pads the exchanged survivor ends and firsts,
@@ -85,12 +101,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.filters import gs_ukf as gsf
 from gpu_se_tpu_torch.filters import particle as pf
 from gpu_se_tpu_torch.filters import particle_tiled as pft
 from gpu_se_tpu_torch.filters.gs_ukf import GSUKFState
 from gpu_se_tpu_torch.filters.particle import PFState
 from gpu_se_tpu_torch.filters.particle_tiled import TiledPFState
+from gpu_se_tpu_torch.ops import graph_cond
 from gpu_se_tpu_torch.ops import resample_pallas4 as rp4
 from gpu_se_tpu_torch.ops import resample_pallas_block as rpb
 from gpu_se_tpu_torch.ops.counter_draw import key_from
@@ -243,22 +261,86 @@ def _distributed_systematic_resample(tree, weights, r, mesh: Mesh):
 # ----------------------------------------------------------------------
 # "kernel": ends_merge_round on the blocks in global order (:250-350)
 # ----------------------------------------------------------------------
-def _distributed_systematic_resample_kernel(tree, weights, r, mesh: Mesh):
+class _KernelCarry:
+    """The kernel route's merge state for a graph: ``counts``, ``acc`` and
+    ``finalized`` of :func:`~gpu_se_tpu_torch.ops.resample_pallas_block.
+    block_resample_state` and the visiting block's ``ends`` and payload,
+    at fixed addresses on the card, with the two skips' bodies captured
+    once as kept graphs (``ops/graph_cond``'s IF items): ``below`` adds
+    ``n_local`` to every count, ``merge`` runs ``ends_merge_round`` on
+    the block and adds one to ``runs``, the card's count of its launches
+    (``graphs.count_on_card``). Built outside any capture."""
+
+    def __init__(self, n_local: int, nx: int, slot0: int, dev):
+        self.counts, self.acc, self.fin = rpb.block_resample_state(
+            n_local, nx, dev)
+        self.ends = torch.zeros(n_local, dtype=torch.int32, device=dev)
+        self.parts = torch.zeros((n_local, nx), dtype=torch.float32,
+                                 device=dev)
+        self.runs = torch.zeros((), dtype=torch.int64, device=dev)
+        graph_cond.prepare(dev)
+
+        def merge():
+            rpb.block_resample_round(self.ends, self.parts, slot0,
+                                     self.counts, self.acc, self.fin,
+                                     block_slots=_KERNEL_BLOCK)
+            self.runs.add_(1)
+
+        self.below = _kept(lambda: self.counts.add_(n_local), dev)
+        self.merge = _kept(merge, dev)
+        graphs.count_on_card(self, rpb.ends_merge_round, 1, self.runs)
+
+
+def _kept(fn, dev) -> torch.cuda.CUDAGraph:
+    """``fn`` captured as a kept graph, the launches its capture counted
+    taken back (it launched nothing)."""
+    counts = [k.launches for k in graphs.KERNELS]
+    graph = graphs.capture(fn, (), {}, [], dev, keep_graph=True)[0]
+    for k, c in zip(graphs.KERNELS, counts):
+        k.launches = c
+    return graph
+
+
+def _distributed_systematic_resample_kernel(tree, weights, r, mesh: Mesh,
+                                            carries=None):
     """The same resample through the port's ``ends_merge_round`` (kernel
     A): any tree packs into one ``(n_local, <= 32)`` payload (the GSUKF
     bank: 30 columns). Round ``q`` broadcasts rank ``q``'s ``ends`` and
     payload (ends as one more int32 column, the payload's bits beside
     it) and advances this rank's merge over it, so the blocks arrive in
     ascending global order, which the merge needs. Two data-dependent
-    skips, read on the host each round: a block wholly below this rank's
-    slots adds ``n_local`` to every count, and a rank whose slots are all
-    final merges no more."""
+    skips: a block wholly below this rank's slots adds ``n_local`` to
+    every count, and a rank whose slots are all final merges no more.
+
+    Eagerly the skips are read on the host each round. A graphed step
+    passes ``carries``, a dict of its :class:`_KernelCarry` by shape: on
+    the card an eager call builds the carry, and a call under capture
+    takes the skips as IF nodes over it, the same kernels on the same
+    data, so the same bits."""
     packed, meta = rpb.pack_rows(tree)
     packed = packed.contiguous()
     n_local, nx = packed.shape
     slot0 = mesh.rank * n_local
     ends, _ = _segmented_ends(weights, r, mesh)
-    counts, acc, fin = rpb.block_resample_state(n_local, nx, packed.device)
+    dev = packed.device
+    carry = None
+    if carries is not None and dev.type == "cuda":
+        key = (n_local, nx)
+        if graphs.capturing(dev):
+            carry = carries.get(key)
+            if carry is None:
+                raise RuntimeError(
+                    "the kernel route's carry is built outside a capture: "
+                    "run the step once before capturing it")
+        elif key not in carries:
+            # for the capture that follows this eager call
+            carries[key] = _KernelCarry(n_local, nx, slot0, dev)
+    if carry is None:
+        counts, acc, fin = rpb.block_resample_state(n_local, nx, dev)
+    else:
+        counts, acc, fin = carry.counts, carry.acc, carry.fin
+        for t in (counts, acc, fin):
+            t.zero_()
     mine = (torch.cat([packed.view(torch.int32), ends[:, None]], dim=1)
             if mesh.size > 1 else None)
     for q in range(mesh.size):
@@ -268,14 +350,25 @@ def _distributed_systematic_resample_kernel(tree, weights, r, mesh: Mesh):
             blk = _comm.broadcast(mesh, mine, q)
             blk_ends = blk[:, -1].contiguous()
             blk_parts = blk[:, :-1].contiguous().view(torch.float32)
+        below = blk_ends[-1] < slot0
+        if carry is not None:
+            go = ~below & ~torch.all(fin > 0.5)
+            carry.ends.copy_(blk_ends)
+            carry.parts.copy_(blk_parts)
+            graph_cond.if_then(below, [carry.below])
+            graph_cond.if_then(go, [carry.merge])
+            continue
         full_below, all_done = torch.stack(
-            [blk_ends[-1] < slot0, torch.all(fin > 0.5)]).tolist()
+            [below, torch.all(fin > 0.5)]).tolist()
         if full_below:
             counts += n_local
         elif not all_done:
             rpb.block_resample_round(blk_ends, blk_parts, slot0, counts, acc,
                                      fin, block_slots=_KERNEL_BLOCK)
-    return (rpb.unpack_rows(acc[:, :nx], meta),
+    # the carry's acc is rewritten by the next step: a graph hands out a
+    # copy, laid out as the eager step's view of its own acc
+    out = (acc if carry is None else acc.clone())[:, :nx]
+    return (rpb.unpack_rows(out, meta),
             _uniform(weights, n_local * mesh.size))
 
 
@@ -494,18 +587,39 @@ def _route(routes: dict, resample_impl: str):
     return routes[resample_impl]
 
 
-def _resample(tree, weights, r, mesh: Mesh, route: tuple):
+def _resample(tree, weights, r, mesh: Mesh, route: tuple, carries=None):
     """Resample ``tree`` by ``weights`` and ``r`` through one route of
     :data:`_FLAT_ROUTES` or :data:`_GSUKF_ROUTES`; returns ``(tree,
-    uniform weights)``."""
+    uniform weights)``. ``carries``: a graphed step's kernel-route
+    carries."""
     protocol, exchange, kernels = route
     if protocol == "ring":
         return _distributed_systematic_resample(tree, weights, r, mesh)
     if protocol == "kernel":
         return _distributed_systematic_resample_kernel(tree, weights, r,
-                                                       mesh)
+                                                       mesh, carries)
     return _distributed_systematic_resample_a2a(
         tree, weights, r, mesh, exchange=exchange, kernels=kernels)
+
+
+def graphable(mesh: Mesh, exchange=None) -> bool:
+    """Whether a step over ``mesh`` whose survivors go by ``exchange``
+    (None: no exchange) is captured: not by the ragged exchange, whose
+    sizes are read on the host, and on a mesh of one rank only (gloo
+    copies through the host; NCCL's captured collectives are not yet
+    held to one rank's step on cards)."""
+    return exchange != "ragged" and mesh.size == 1
+
+
+def _entry(step, from_noise, graphed: bool):
+    """The factory's step: :class:`~gpu_se_tpu_torch.graphs.Graphed` of
+    ``step`` where ``graphed``, else ``step``; with its ``from_noise``
+    and its ``graphed`` flag."""
+    if graphed:
+        step = graphs.Graphed(step)
+    step.from_noise = from_noise
+    step.graphed = graphed
+    return step
 
 
 def shard_pf_state(state: PFState, mesh: Mesh) -> PFState:
@@ -526,14 +640,17 @@ def make_shard_map_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
     rows, and the step is the same at every width. ``step.from_noise(
     particles, weights, u, z, dt, measurement_pdf, noise, r) ->
     (particles, weights)`` takes this rank's noise slice and ``r``
-    instead."""
+    instead. The step is one graph replay a call where ``step.graphed``
+    (:func:`graphable`); ``from_noise`` runs eagerly."""
     route = _route(_FLAT_ROUTES, resample_impl)
+    graphed = graphable(mesh, route[1])
+    carries = {} if graphed else None
 
     def from_noise(particles, weights, u, z, dt, measurement_pdf, noise, r):
         particles = pf.predict_from_noise(particles, u, dt, f, noise)
         weights = pf.update(PFState(particles, weights, None), u, z, g,
                             measurement_pdf).weights
-        return _resample(particles, weights, r, mesh, route)
+        return _resample(particles, weights, r, mesh, route, carries)
 
     def step(state: PFState, u, z, dt, state_pdf, measurement_pdf):
         n_local = state.n_particles
@@ -547,8 +664,7 @@ def make_shard_map_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
             noise, r)
         return PFState(particles, weights, gen)
 
-    step.from_noise = from_noise
-    return step
+    return _entry(step, from_noise, graphed)
 
 
 def _gathered(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
@@ -619,8 +735,11 @@ def make_shard_map_gsukf_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
     ``step.from_noise(means, covariances, weights, u, z, dt,
     measurement_pdf, noise, r)`` takes this rank's noise, ``(2 nx + 1,
     nx, n_local)`` lanes-last, and ``r``, and returns ``((means,
-    covariances), weights)``."""
+    covariances), weights)``. Graphed as :func:`make_shard_map_step`'s
+    step is."""
     route = _route(_GSUKF_ROUTES, resample_impl)
+    graphed = graphable(mesh, route[1])
+    carries = {} if graphed else None
 
     def from_noise(means, covariances, weights, u, z, dt, measurement_pdf,
                    noise, r):
@@ -628,7 +747,7 @@ def make_shard_map_gsukf_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
                                        noise_is_lanes=True)
         means, covs, weights = gsf.update_core(means, covs, weights, u, z, g,
                                                measurement_pdf)
-        return _resample((means, covs), weights, r, mesh, route)
+        return _resample((means, covs), weights, r, mesh, route, carries)
 
     def step(state: GSUKFState, u, z, dt, state_pdf, measurement_pdf):
         n_local, nx = state.means.shape
@@ -644,8 +763,7 @@ def make_shard_map_gsukf_step(mesh: Mesh, f, g, resample_impl: str = "xla"):
             r)
         return GSUKFState(means, covs, weights, gen)
 
-    step.from_noise = from_noise
-    return step
+    return _entry(step, from_noise, graphed)
 
 
 # ----------------------------------------------------------------------
@@ -677,7 +795,8 @@ def make_shard_map_tiled_step(mesh: Mesh, f, g, exchange: str = "ragged"):
     (``"ragged"`` or ``"ring"``), ``expand`` (K1), whose output is the
     next state. Given the same particles and weights the resample is
     bit-equal to every other route's; the noise depends on the width, as
-    the reference's does."""
+    the reference's does. Over the ``"ring"`` exchange the step is one
+    graph replay a call where the mesh allows (:func:`graphable`)."""
     if exchange not in EXCHANGES:
         raise ValueError(f"unknown exchange {exchange!r}")
 
@@ -695,8 +814,7 @@ def make_shard_map_tiled_step(mesh: Mesh, f, g, exchange: str = "ragged"):
         return TiledPFState(
             from_noise(x, u, z, dt, measurement_pdf, noise, r), gen)
 
-    step.from_noise = from_noise
-    return step
+    return _entry(step, from_noise, graphable(mesh, exchange))
 
 
 # ----------------------------------------------------------------------

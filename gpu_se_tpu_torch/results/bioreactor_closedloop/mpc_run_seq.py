@@ -5,19 +5,21 @@ solve.
 
 Counterpart of the reference's
 ``results/bioreactor_closedloop/mpc_run_seq.py``. Its device time is the
-slope of a ``lax.scan`` of warm-started solves; here
+slope of a ``lax.scan`` of warm-started solves inside ``jax.jit``; here
 :func:`device_solve_ms` chains ``k1`` and then ``k2`` calls of
-``control.mpc.make_device_step``'s step on the card, each chain ended by
-one synchronise, and takes the slope. The QP reads two flags back to the
-host once every ``check_every`` iterations, so the figure includes those
-reads, as every solve on the card does.
+``control.mpc.make_device_step``'s step on the card, each chain one CUDA
+graph replay (``graphs.Graphed``: each solve's WHILE node inside it, no
+read to the host) ended by one synchronise, and takes the slope.
+``graphed=False`` times the chain as a Python loop of the solves' own
+replays instead.
 """
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from gpu_se_tpu_torch import sim
+from gpu_se_tpu_torch import graphs, sim
 from gpu_se_tpu_torch.control import mpc as mpc_mod
 from gpu_se_tpu_torch.results._common import pyplot, save_fig
 from gpu_se_tpu_torch.utils import PickleJar, max_abs_pacf
@@ -62,11 +64,14 @@ def mpc_run_seq(n_runs=1000, dt_control=0.1, device="cuda"):
     return np.array(times)
 
 
-def device_solve_ms(dt_control=0.1, k1=2, k2=10, reps=3, device="cuda"):
+def device_solve_ms(dt_control=0.1, k1=2, k2=10, reps=3, device="cuda",
+                    graphed=True):
     """Device-side ms per solve: the slope between chains of ``k1`` and
     ``k2`` warm-started solves of ``make_device_step``'s step, each chain
     from a fresh random ``x0`` and ended by one synchronise, median of
-    ``reps`` chains after one warm-up. Returns ``(ms_per_solve,
+    ``reps`` chains after one warm-up. Each chain is one graph replay
+    (its first call captures it, untimed), or with ``graphed=False`` a
+    Python loop of solves. Returns ``(ms_per_solve,
     cold_start_admm_iterations)``."""
     _, _, K, _ = sim.get_parts(dt_control=dt_control, device=device)
     consts, step_fn = mpc_mod.make_device_step(K)
@@ -81,25 +86,39 @@ def device_solve_ms(dt_control=0.1, k1=2, k2=10, reps=3, device="cuda"):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def chain(k, x0):
-        um1, bias, wv, wy = zeros(K.Ni), zeros(K.No), zeros(n_d), zeros(m_rows)
-        for i in range(k):
-            ctrl, _y, sol = step_fn(consts, x0, um1, bias, wv, wy)
-            x0 = x0 + 0.005 * torch.tanh(ctrl) + 1e-4 * i
-            um1, wv, wy = ctrl, sol.x, sol.y
-        sync()
+    def make_chain(k):
+        def chain(x0):
+            um1, bias = zeros(K.Ni), zeros(K.No)
+            wv, wy = zeros(n_d), zeros(m_rows)
+            for i in range(k):
+                ctrl, _y, sol = step_fn(consts, x0, um1, bias, wv, wy)
+                x0 = x0 + 0.005 * torch.tanh(ctrl) + 1e-4 * i
+                um1, wv, wy = ctrl, sol.x, sol.y
+            return um1
+
+        return graphs.Graphed(chain, copy_out=False)
 
     gen = torch.Generator().manual_seed(time.time_ns() % 2**31)
+
+    def x0():
+        return (0.05 * torch.randn(K.Nx, generator=gen)).to(dev)
+
     times = {}
     for k in (k1, k2):
+        chain = make_chain(k)
         ts = []
-        for _ in range(reps + 1):
-            x0 = (0.05 * torch.randn(K.Nx, generator=gen)).to(dev)
-            sync()
-            t0 = time.perf_counter()
-            chain(k, x0)
-            ts.append((time.perf_counter() - t0) * 1e3)
+        with (contextlib.nullcontext() if graphed
+              else graphs.disabled(chain)):
+            chain(x0())                      # the capture, untimed
+            for _ in range(reps + 1):
+                start = x0()
+                sync()
+                t0 = time.perf_counter()
+                chain(start)
+                sync()
+                ts.append((time.perf_counter() - t0) * 1e3)
         times[k] = float(np.median(ts[1:]))
+        chain.clear()
     ms = (times[k2] - times[k1]) / (k2 - k1)
     _, _, sol = step_fn(consts, torch.tensor([0.01, -0.01], device=dev),
                         zeros(K.Ni), zeros(K.No), zeros(n_d), zeros(m_rows))

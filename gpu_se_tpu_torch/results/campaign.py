@@ -11,6 +11,11 @@ from, and the artifact is rewritten after every size: a run cut short
 leaves a file that says which legs and sizes ran. A leg that fails
 raises, and the command exits non-zero.
 
+The card's run sequences, breakdown, energy and MPC chain are timed as
+graph replays, the reference's ``jax.jit``; each card size is also timed
+eagerly right after (``graphs.disabled``, not memoized) and recorded
+beside, under ``eager``, as the pacf leg records its eager chain.
+
 Usage, on a host with a CUDA card (and no matplotlib needed)::
 
     python -m gpu_se_tpu_torch.results.campaign pf_run_seq gsf_run_seq
@@ -33,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from gpu_se_tpu_torch import graphs
 from gpu_se_tpu_torch.results import _common
 
 LEGS = ("pf_run_seq", "gsf_run_seq", "power", "pacf", "mpc", "frontier",
@@ -108,15 +114,22 @@ def seq_stats(seq) -> dict:
 def run_seq_legs(art, entry, entries, grids):
     """Each ``(name, fn)`` of ``entries`` over each leg's grid, ``RUNS``
     runs a size, one size at a time; ``entry["sizes"][leg][op]`` gains a
-    row per size."""
+    row per size, a card row with the eager timing of its size
+    (``graphs.disabled``, the unmemoized function ``fn.raw``: an eager
+    timing is never read from, or written to, the jar of the graphed
+    one) under ``eager``."""
     entry["sizes"] = {leg: {name: [] for name, _ in entries} for leg in grids}
     for leg, (gpu, log2s) in grids.items():
         for log2 in log2s:
             n = int(2.0 ** log2)
             for name, fn in entries:
                 _, (seq,) = fn(np.array([n]), RUNS, gpu)
-                entry["sizes"][leg][name].append(
-                    {"log2": float(log2), "n": n, **seq_stats(seq)})
+                row = {"log2": float(log2), "n": n, **seq_stats(seq)}
+                if gpu:
+                    with graphs.disabled():
+                        row["eager"] = seq_stats(
+                            fn.raw(n, RUNS, gpu))
+                entry["sizes"][leg][name].append(row)
             art.write()
 
 
@@ -135,6 +148,10 @@ def leg_pf_run_seq(art):
         rows = m.breakdown_run_seqs(BREAKDOWN_N, RUNS, gpu)
         entry["breakdown"][leg] = {k: seq_stats(v) for k, v in rows.items()}
         art.write()
+    with graphs.disabled():
+        rows = m.breakdown_run_seqs.raw(BREAKDOWN_N, RUNS, True)
+    entry["breakdown"]["card"]["eager"] = {k: seq_stats(v)
+                                           for k, v in rows.items()}
 
 
 def leg_gsf_run_seq(art):
@@ -163,8 +180,16 @@ def leg_power(art):
             for log2 in mod.N_LOG2:
                 (n, e_cpu, e_card), = mod.energy_per_run(
                     POWER_T_RUN, gpu, np.array([log2]))
-                entry[name][leg].append({"n": n, "cpu_j_per_step": _finite(e_cpu),
-                                         "card_j_per_step": _finite(e_card)})
+                row = {"n": n, "cpu_j_per_step": _finite(e_cpu),
+                       "card_j_per_step": _finite(e_card)}
+                if gpu:
+                    with graphs.disabled():
+                        (_, e_cpu, e_card), = pf_power.per_step(
+                            [n], [mod.step_energy.raw(
+                                n, POWER_T_RUN, gpu)])
+                    row["eager"] = {"cpu_j_per_step": _finite(e_cpu),
+                                    "card_j_per_step": _finite(e_card)}
+                entry[name][leg].append(row)
                 art.write()
 
 
@@ -189,6 +214,7 @@ def leg_mpc(art):
     ms, iters = m.device_solve_ms()
     entry["device_solve_ms"] = ms
     entry["cold_start_iterations"] = iters
+    entry["eager"] = {"device_solve_ms": m.device_solve_ms(graphed=False)[0]}
 
 
 def leg_frontier(art):

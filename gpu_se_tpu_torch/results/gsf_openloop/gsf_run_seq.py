@@ -12,7 +12,13 @@ import numpy as np
 
 from gpu_se_tpu_torch.filters import gs_ukf
 from gpu_se_tpu_torch.results._common import card_label, pyplot, save_fig
-from gpu_se_tpu_torch.results._filter_bench import build, run_seq, time_op
+from gpu_se_tpu_torch.results._filter_bench import (
+    build,
+    graphed,
+    release,
+    run_seq,
+    time_op,
+)
 from gpu_se_tpu_torch.results.pf_openloop.pf_run_seq import OPS, run_seq_grids
 from gpu_se_tpu_torch.utils import PickleJar, RunSequences
 
@@ -39,18 +45,24 @@ def resample_run_seq(N, runs, gpu):
     return run_seq("gsf", "resample", N, runs, gpu)
 
 
+@graphed
+def sigma_points_op(s):
+    """Sigma-point generation alone (batched Cholesky and spread), a
+    graphed op as ``build``'s are, as the reference jits it: chained
+    through the state (the first sigma point is the mean), so that each
+    call takes the last one's output."""
+    return dataclasses.replace(s, means=gs_ukf.get_sigma_points(s)[:, 0, :])
+
+
 @RunSequences.vectorize
 @PickleJar.pickle(path="gsf/raw")
 def sigma_points_run_seq(N, runs, gpu):
-    """Sigma-point generation alone (batched Cholesky and spread)."""
+    """Sigma-point generation alone (:data:`sigma_points_op`)."""
     state, _ = build("gsf", N, gpu)
-
-    # chain through the state (the first sigma point is the mean) so that
-    # each call takes the last one's output
-    def sp(s):
-        return dataclasses.replace(s, means=gs_ukf.get_sigma_points(s)[:, 0, :])
-
-    return time_op(sp, state, runs)
+    try:
+        return time_op(sigma_points_op, state, runs)
+    finally:
+        release(sigma_points_op)
 
 
 @RunSequences.vectorize

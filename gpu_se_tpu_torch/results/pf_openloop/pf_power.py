@@ -11,7 +11,7 @@ import time
 import numpy as np
 
 from gpu_se_tpu_torch.results._common import card_label, pyplot, save_fig
-from gpu_se_tpu_torch.results._filter_bench import _sync, build
+from gpu_se_tpu_torch.results._filter_bench import _sync, build, release, warm
 from gpu_se_tpu_torch.utils import PickleJar, PowerMeasurement, RunSequences
 
 N_LOG2 = np.arange(0, 21, 2.0)
@@ -21,19 +21,23 @@ PACE = 5        # steps between synchronises
 def paced_steps(kind, N, t_run, gpu):
     """Step the ``kind`` filter for ``t_run`` seconds, synchronising once
     every ``PACE`` steps so that the queue never runs ahead of the
-    window; returns the count of steps."""
+    window; returns the count of steps. The step is ``build``'s graphed
+    op, warmed (captured) before the window."""
     state, ops = build(kind, N, gpu)
     op = ops["step"]
-    s = op(state)
-    _sync(s)
-    t_end = time.time() + t_run
-    count = 0
-    while time.time() < t_end:
-        for _ in range(PACE):
-            s = op(s)
-        count += PACE
+    try:
+        s, _ = warm(op, state)
         _sync(s)
-    return count
+        t_end = time.time() + t_run
+        count = 0
+        while time.time() < t_end:
+            for _ in range(PACE):
+                s = op(s)
+            count += PACE
+            _sync(s)
+        return count
+    finally:
+        release(ops)
 
 
 @RunSequences.vectorize

@@ -14,9 +14,9 @@ barrier.
 
 It drives the entry points only, so a copy of this file in an older tree
 of the package measures that tree the same way. ``chip_smoke.py``'s
-W = 2 phase takes its memory and times from :func:`step_rows` too, and
-the tests and the smoke run count a rank's draws with
-:func:`counted_draws`.
+W = 2 phase takes its memory and times from :func:`step_rows` too, its
+sharded phase builds each entry point with :func:`entry_step`, and the
+tests and the smoke run count a rank's draws with :func:`counted_draws`.
 
 Usage (the card): ``python -m gpu_se_tpu_torch.results.sharded_steps``
 prints the card's ``nvidia-smi`` line and one JSON line.
@@ -33,17 +33,20 @@ from gpu_se_tpu_torch import rig
 from gpu_se_tpu_torch.distributions import GaussianSum
 from gpu_se_tpu_torch.filters import gs_ukf as gsf
 from gpu_se_tpu_torch.filters import particle as pf
+from gpu_se_tpu_torch.filters import particle_tiled as pft
 from gpu_se_tpu_torch.models import bioreactor as bio
 from gpu_se_tpu_torch.parallel import (
     make_mesh,
     make_shard_map_gsukf_step,
     make_shard_map_step,
+    make_shard_map_tiled_step,
     shard_gsukf_state,
     shard_pf_state,
+    shard_tiled_pf_state,
 )
 from gpu_se_tpu_torch.parallel.launch import run_group
 
-N_LOCAL = {"flat": 2**20, "gsukf": 2**18}
+N_LOCAL = {"flat": 2**20, "gsukf": 2**18, "tiled": 2**20}
 STEPS = {"flat kernel": 20, "flat a2a": 20, "gsukf kernel": 10}
 WIDTHS = (1, 2)
 SEED = 0
@@ -101,6 +104,35 @@ def step_rows(step, state, steps: int, dev):
     return first, int(peak), start.elapsed_time(end) / steps
 
 
+def entry_step(mesh, name: str, seed: int, rig_parts, width=None):
+    """``(state, fn, step)`` on this rank: its slice of one global state
+    of ``N_LOCAL * width`` particles (Gaussians; ``width`` defaults to
+    the mesh's) drawn from ``seed`` on ``bench.py``'s rig
+    (``rig_parts``: its ``x0``, ``state_pdf`` and ``meas_pdf`` on the
+    mesh's device), the entry point ``name`` ("<filter> <route>") and
+    ``step(state)`` at its inputs."""
+    dev = mesh.device
+    x0, state_pdf, meas_pdf = rig_parts
+    f, g = bio.homeostatic_des, bio.static_outputs
+    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
+    z = g(torch.from_numpy(rig.X_SS)).to(torch.float32).to(dev)
+    dt = torch.tensor(0.1, device=dev)
+    kind, route = name.split()
+    n_global = N_LOCAL[kind] * (width or mesh.size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "flat":
+        state = shard_pf_state(pf.init(gen, n_global, x0), mesh)
+        fn = make_shard_map_step(mesh, f, g, resample_impl=route)
+    elif kind == "gsukf":
+        state = shard_gsukf_state(gsf.init(gen, n_global, x0, state_pdf),
+                                  mesh)
+        fn = make_shard_map_gsukf_step(mesh, f, g, resample_impl=route)
+    else:
+        state = shard_tiled_pf_state(pft.init(gen, n_global, x0), mesh)
+        fn = make_shard_map_tiled_step(mesh, f, g, exchange=route)
+    return state, fn, lambda s: fn(s, u, z, dt, state_pdf, meas_pdf)
+
+
 def rank_run(seed: int) -> dict:
     """This rank's ``{step: (peak_bytes, ms a step)}`` for every entry of
     :data:`STEPS` at this group's width."""
@@ -108,27 +140,12 @@ def rank_run(seed: int) -> dict:
     mesh = make_mesh()
     dev = mesh.device
     torch.cuda.set_device(dev)
-    x0, state_pdf, meas_pdf = (GaussianSum.create(*a, device=dev)
-                               for a in rig.bench_rig())
-    f, g = bio.homeostatic_des, bio.static_outputs
-    u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
-    z = g(torch.from_numpy(rig.X_SS)).to(torch.float32).to(dev)
-    dt = torch.tensor(0.1, device=dev)
+    rig_parts = tuple(GaussianSum.create(*a, device=dev)
+                      for a in rig.bench_rig())
     rows = {}
     for name, steps in STEPS.items():
-        kind, route = name.split()
-        n_global = N_LOCAL[kind] * mesh.size
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        if kind == "flat":
-            state = shard_pf_state(pf.init(gen, n_global, x0), mesh)
-            fn = make_shard_map_step(mesh, f, g, resample_impl=route)
-        else:
-            state = shard_gsukf_state(gsf.init(gen, n_global, x0, state_pdf),
-                                      mesh)
-            fn = make_shard_map_gsukf_step(mesh, f, g, resample_impl=route)
-        _, peak, ms = step_rows(
-            lambda s: fn(s, u, z, dt, state_pdf, meas_pdf), state, steps,
-            dev)
+        state, _, step = entry_step(mesh, name, seed, rig_parts)
+        _, peak, ms = step_rows(step, state, steps, dev)
         rows[name] = (peak, ms)
     return rows
 

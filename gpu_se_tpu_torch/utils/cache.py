@@ -154,7 +154,7 @@ class PickleJar:
         if cache_settings is None:
             cache_settings = global_cache_settings
         self.cache_settings = cache_settings
-        self.func = func
+        self.func = self.raw = func     # raw: the unmemoized function
         self.__name__ = func.__name__
         self.__doc__ = getattr(func, "__doc__", None)
         self.store_backend = _Store(location, root, func.__name__)

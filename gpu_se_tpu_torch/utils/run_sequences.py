@@ -12,6 +12,8 @@ import numpy as np
 class RunSequences:
     def __init__(self, func):
         self.func = func
+        # the function under the memo wrappers (a PickleJar's too)
+        self.raw = getattr(func, "raw", func)
         self.__name__ = getattr(func, "__name__", "run_seq")
 
     def __call__(self, N_particles, *args, **kwargs):

@@ -280,3 +280,35 @@ def control_suite(d):
             est=_np(S.point_estimate(state, mesh)), u=_np(u),
             y_pred=_np(y_pred), status=int(sol.status))
     return out
+
+
+def kernel_skips_suite(d):
+    """The kernel route on this rank for each of ``d["cases"]``, at the
+    reference's ``ends``: this rank's rows and the rounds it merged (each
+    merged block's source rank), the skipped rounds left out."""
+    mesh = make_mesh(device="cpu")
+    r = torch.tensor(d["r"], dtype=torch.float32)
+    sources, merged = [], []
+    broadcast, merge = S._comm.broadcast, S.rpb.block_resample_round
+
+    def spy_broadcast(mesh_, t, src):
+        sources.append(src)
+        return broadcast(mesh_, t, src)
+
+    def spy_merge(*args, **kwargs):
+        merged.append(sources[-1])
+        return merge(*args, **kwargs)
+
+    S._comm.broadcast, S.rpb.block_resample_round = spy_broadcast, spy_merge
+    out = {}
+    try:
+        for case, (w, ends) in d["cases"].items():
+            merged.clear()
+            with injected_ends(mesh, ends):
+                got, _ = S._resample(particle_sharding(mesh, d["parts"]),
+                                     particle_sharding(mesh, w), r, mesh,
+                                     S._FLAT_ROUTES["kernel"])
+            out[case] = (_np(got), list(merged))
+    finally:
+        S._comm.broadcast, S.rpb.block_resample_round = broadcast, merge
+    return out

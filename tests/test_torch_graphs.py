@@ -21,6 +21,7 @@ everything the port computes twice, graphed and eager, is bit-equal.
 """
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -57,45 +58,14 @@ METHODS = ("predict", "update", "resample", "step", "moments")
 
 
 # ----------------------------------------------------------------------
-# the stand-in for the card's side
+# the stand-in for the card's side (tests/_torch_graph_stand_in.py)
 # ----------------------------------------------------------------------
-def _tensors(tree) -> list:
-    out = []
-    graphs._map_tensors(tree, out.append)
-    return out
-
-
-class StandInGraph:
-    """Replays by running ``fn`` on the static inputs and writing each
-    output into the tensor the capture returned."""
-
-    def __init__(self, fn, args, kwargs, out):
-        self.fn, self.args, self.kwargs, self.out = fn, args, kwargs, out
-
-    def replay(self):
-        # a replay runs no Python: the wrappers' counts stay as they are
-        counts = [k.launches for k in graphs.KERNELS]
-        fresh = self.fn(*self.args, **self.kwargs)
-        for k, c in zip(graphs.KERNELS, counts):
-            k.launches = c
-        for o, f in zip(_tensors(self.out), _tensors(fresh)):
-            o.copy_(f)
-
-
-def stand_in_capture(fn, args, kwargs, gens, dev):
-    saved = [g.get_state() for g in gens]
-    out = fn(*args, **kwargs)
-    for g, s in zip(gens, saved):
-        g.set_state(s)
-    return StandInGraph(fn, args, kwargs, out), out, 0
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    monkeypatch.setattr(graphs, "on_card", lambda dev: True)
-    monkeypatch.setattr(graphs, "warm_up",
-                        lambda fn, args, kwargs, dev: fn(*args, **kwargs))
-    monkeypatch.setattr(graphs, "capture", stand_in_capture)
+from tests._torch_graph_stand_in import (  # noqa: E402,F401
+    StandInGraph,
+    _tensors,
+    stand_in,
+    stand_in_capture,
+)
 
 
 # ----------------------------------------------------------------------
@@ -652,3 +622,49 @@ def test_pacf_sensors_without_a_card():
     assert ps.correlation(a, -a) == pytest.approx(-1.0)
     assert ps.correlation(a, np.ones(12)) is None
     assert ps.correlation(a, [None] * 12) is None
+
+
+# ----------------------------------------------------------------------
+# counts kept on the device, and the fork of a state
+# ----------------------------------------------------------------------
+def test_counts_on_the_device_settle_and_go_with_their_owner():
+    """A registered count adds ``launches`` a run to its wrapper and is
+    zeroed at each settle; once its owner is gone it is read no more."""
+    import gc
+
+    class Owner:
+        pass
+
+    wrapper = types.SimpleNamespace(launches=0)
+    owner, count = Owner(), torch.zeros((), dtype=torch.int64)
+    graphs.count_on_card(owner, wrapper, 2, count)
+    count.add_(3)
+    graphs.settle_counts()
+    assert wrapper.launches == 6 and count.item() == 0
+    graphs.settle_counts()
+    assert wrapper.launches == 6
+    del owner
+    gc.collect()
+    count.add_(1)
+    graphs.settle_counts()
+    assert wrapper.launches == 6 and count.item() == 1
+
+
+@pytest.mark.parametrize("kind", ["pf", "gsukf"])
+def test_fork_clones_the_state_and_its_generator(kind):
+    x0, state_pdf, _ = (TGS.create(*a, device="cpu")
+                        for a in rig.bench_rig())
+    gen = torch.Generator().manual_seed(4)
+    state = (tpf.init(gen, 64, x0) if kind == "pf"
+             else tg.init(gen, 16, x0, state_pdf))
+    copy = graphs.fork(state)
+    assert copy.generator is not state.generator
+    assert torch.equal(copy.generator.get_state(),
+                       state.generator.get_state())
+    for f in dataclasses.fields(state):
+        a, b = getattr(state, f.name), getattr(copy, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b) and a.stride() == b.stride()
+            assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(torch.rand(3, generator=copy.generator),
+                       torch.rand(3, generator=state.generator))

@@ -888,6 +888,38 @@ def test_sharded_routes_launch_their_kernels_on_card(cuda, family):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["xla", "kernel", "a2a_ring_v4",
+                                   "a2a_ring"])
+def test_sharded_step_graphed_equals_eager_on_card(cuda, route):
+    """At W = 1 the flat entry point's step is one graph replay a call
+    (the kernel route's skips IF nodes), bit-equal to the same step under
+    ``graphs.disabled`` over three chained steps from one seed; the kernel
+    route's ``ends_merge_round`` counted at each replay by the card."""
+    from gpu_se_tpu_torch import graphs
+    from gpu_se_tpu_torch.parallel import make_mesh
+    from gpu_se_tpu_torch.results import sharded_steps as ss
+
+    mesh = make_mesh(device=cuda)
+    parts = tuple(GaussianSum.create(*a, device=cuda)
+                  for a in rig.bench_rig())
+    (a, fn, step), (b, _, _) = (ss.entry_step(mesh, f"flat {route}", 0,
+                                              parts) for _ in range(2))
+    assert fn.graphed
+    graphs.settle_counts()
+    before = rpb.ends_merge_round.launches
+    for _ in range(3):
+        a = step(a)
+        with graphs.disabled(fn):
+            b = step(b)
+        assert torch.equal(a.particles, b.particles)
+        assert torch.equal(a.weights, b.weights)
+    assert fn.replays >= 1
+    graphs.settle_counts()
+    assert rpb.ends_merge_round.launches - before == (
+        6 if route == "kernel" else 0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("route", ["kernel", "a2a", "a2a_ring_v4"])
 def test_two_ranks_on_one_card_over_gloo(cuda, route):
     """Two spawned ranks share the card over gloo, which copies each

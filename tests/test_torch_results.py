@@ -527,6 +527,8 @@ def test_campaign_artifact_records_each_size(monkeypatch, tmp_path):
             raise RuntimeError("a size failed")
         return ns, np.array([np.linspace(1e-3, 2e-3, runs)])
 
+    # the unmemoized function a card row's eager timing calls
+    fake.raw = lambda n, runs, gpu: np.linspace(2e-3, 3e-3, runs)
     monkeypatch.setattr(camp, "RUNS", 10)
     monkeypatch.setattr(camp, "LEG_FNS", {"pf_run_seq": lambda art:
                                           camp.run_seq_legs(
