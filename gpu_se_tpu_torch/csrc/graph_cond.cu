@@ -18,11 +18,17 @@
 // launch starts the loop afresh. When given a count, set_cond adds one to
 // g_count each time it runs: the WHILE iterations, read after a run
 // through gst_cond_count. gst_cond_prepare, called outside any capture,
-// loads set_cond's module and takes g_count's address beforehand.
+// loads set_cond's module and takes g_count's address beforehand. When
+// given the span recorder's ring (trace_ring.cuh; gpu_se_tpu_torch/trace.py
+// passes it when armed at capture, else a null pointer), set_cond also
+// stamps each counted run, a WHILE iteration, and each run that takes a
+// nested IF node (the QP's refactorization): no launch of its own, one
+// 16-byte store.
 //
 // Bound on the H100: none worth the name. set_cond reads one byte and, when
-// counting, adds to one 8-byte word: a few bytes an iteration, far below a
-// microsecond at 3.35 TB/s. What an iteration costs is the device's
+// counting, adds to one 8-byte word (and, stamping, an 8-byte atomic and a
+// 16-byte store): a few bytes an iteration, far below a microsecond at
+// 3.35 TB/s. What an iteration costs is the device's
 // scheduling of the conditional node and of its body's launches, which
 // chip_smoke.py times against the host-driven loop.
 //
@@ -37,15 +43,22 @@
 
 #include <cstddef>
 
+#include "trace_ring.cuh"
+
 namespace {
 
 __device__ unsigned long long g_count = 0;
 unsigned long long* g_count_ptr = nullptr;  // its address, once prepared
 
 __global__ void set_cond(cudaGraphConditionalHandle handle, const bool* flag,
-                         unsigned long long* count) {
-  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+                         unsigned long long* count, unsigned long long* ring) {
+  const bool taken = *flag;
+  cudaGraphSetConditional(handle, taken ? 1u : 0u);
   if (count != nullptr) atomicAdd(count, 1ull);
+  if (ring != nullptr && (count != nullptr || taken)) {
+    gst_trace::stamp(ring, count != nullptr ? gst_trace::kWhile
+                                            : gst_trace::kIf);
+  }
 }
 
 int counter(int counted, unsigned long long** out) {
@@ -137,7 +150,7 @@ int gst_capture_set(void* stream, unsigned long long handle, const bool* flag,
   int rc = counter(counted, &count);
   if (rc != 0) return rc;
   set_cond<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(handle, flag,
-                                                           count);
+                                                           count, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -186,14 +199,15 @@ int gst_graph_child(void* graph, void** last, void* child) {
   return 0;
 }
 
-// a kernel node: set_cond(handle, flag)
+// a kernel node: set_cond(handle, flag), stamping into `ring` unless null
 int gst_graph_set(void* graph, void** last, unsigned long long handle,
-                  const bool* flag, int counted) {
+                  const bool* flag, int counted, void* ring) {
   unsigned long long* count;
   int rc = counter(counted, &count);
   if (rc != 0) return rc;
   cudaGraphConditionalHandle h = handle;
-  void* args[] = {&h, &flag, &count};
+  unsigned long long* stamps = static_cast<unsigned long long*>(ring);
+  void* args[] = {&h, &flag, &count, &stamps};
   cudaKernelNodeParams params = {};
   params.func = reinterpret_cast<void*>(set_cond);
   params.gridDim = dim3(1);

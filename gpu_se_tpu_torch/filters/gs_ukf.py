@@ -37,7 +37,7 @@ from typing import Callable
 
 import torch
 
-from gpu_se_tpu_torch import graphs
+from gpu_se_tpu_torch import graphs, trace
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
 from gpu_se_tpu_torch.filters import resampling
 from gpu_se_tpu_torch.filters.particle import _as_dist
@@ -362,7 +362,8 @@ class GaussianSumUnscentedKalmanFilter:
     ``predict``, ``update``, ``resample`` (the bank's compact + expand),
     ``step`` and ``moments`` each run on the card as the replay of a CUDA
     graph of their own (:attr:`graphs`), as the
-    ``particle.ParticleFilter`` shell's do.
+    ``particle.ParticleFilter`` shell's do, and each method is a span of
+    the recorder as theirs are.
     """
 
     def __init__(self, f, g, N_particles, x0, state_pdf, measurement_pdf,
@@ -401,37 +402,44 @@ class GaussianSumUnscentedKalmanFilter:
 
     # -- reference API --------------------------------------------------
     def predict(self, u, dt):
-        self.state = self.graphs["predict"](
-            self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
+        with trace.span("shell.predict"):
+            self.state = self.graphs["predict"](
+                self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
 
     def update(self, u, z):
-        self.state = self.graphs["update"](
-            self.state, self._t(u), self._t(z), self.g, self.measurement_pdf,
-            self.stabilized)
+        with trace.span("shell.update"):
+            self.state = self.graphs["update"](
+                self.state, self._t(u), self._t(z), self.g,
+                self.measurement_pdf, self.stabilized)
 
     def resample(self):
-        self.state = self.graphs["resample"](self.state)
+        with trace.span("shell.resample"):
+            self.state = self.graphs["resample"](self.state)
 
     def step(self, u, z, dt):
         """Predict, update and resample in one call (one replay)."""
-        self.state = self.graphs["step"](
-            self.state, self._t(u), self._t(z), self._t(dt), self.f, self.g,
-            self.state_pdf, self.measurement_pdf, self.stabilized)
+        with trace.span("shell.step"):
+            self.state = self.graphs["step"](
+                self.state, self._t(u), self._t(z), self._t(dt), self.f,
+                self.g, self.state_pdf, self.measurement_pdf, self.stabilized)
 
     def point_estimate(self):
-        return point_estimate(self.state)
+        with trace.span("shell.point_estimate", self.device):
+            return point_estimate(self.state)
 
     def point_covariance(self):
-        return point_covariance(self.state)
+        with trace.span("shell.point_covariance", self.device):
+            return point_covariance(self.state)
 
     def moments(self):
         """``(point_estimate, point_covariance)``, cached until the state
         changes."""
         if self._moments_cache is None:
             st = self.state
-            est, cov = self.graphs["moments"](st.means, st.covariances,
-                                              st.weights)
-            self._moments_cache = (est, torch.linalg.svdvals(cov)[0])
+            with trace.span("shell.moments", self.device):
+                est, cov = self.graphs["moments"](st.means, st.covariances,
+                                                  st.weights)
+                self._moments_cache = (est, torch.linalg.svdvals(cov)[0])
         return self._moments_cache
 
     @property

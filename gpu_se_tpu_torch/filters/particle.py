@@ -26,7 +26,7 @@ from typing import Callable
 
 import torch
 
-from gpu_se_tpu_torch import graphs
+from gpu_se_tpu_torch import graphs, trace
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
 from gpu_se_tpu_torch.filters import resampling
 from gpu_se_tpu_torch.filters.resampling import (
@@ -180,6 +180,14 @@ class ParticleFilter:
     assigned distribution; ``moments`` takes the covariance's largest
     singular value after its replay. The tensors it hands out keep their
     values after later calls. On the CPU each runs directly.
+
+    Each method is a ``shell.<method>`` span of the recorder
+    (``gpu_se_tpu_torch.trace``); the graphed ones hold their inputs'
+    staging and the graphed call (a device span of its own), and the
+    eager ones (the point estimate, covariance and moments) are device
+    spans too. The staging's few-byte copies stay outside the device
+    spans: two stamps more a call would cost the card more than the
+    copies take.
     """
 
     def __init__(self, f, g, N_particles, x0, state_pdf, measurement_pdf,
@@ -219,36 +227,43 @@ class ParticleFilter:
 
     # -- reference API --------------------------------------------------
     def predict(self, u, dt):
-        self.state = self.graphs["predict"](
-            self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
+        with trace.span("shell.predict"):
+            self.state = self.graphs["predict"](
+                self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
 
     def update(self, u, z):
-        self.state = self.graphs["update"](
-            self.state, self._t(u), self._t(z), self.g, self.measurement_pdf,
-            self.stabilized)
+        with trace.span("shell.update"):
+            self.state = self.graphs["update"](
+                self.state, self._t(u), self._t(z), self.g,
+                self.measurement_pdf, self.stabilized)
 
     def resample(self):
-        self.state = self.graphs["resample"](self.state)
+        with trace.span("shell.resample"):
+            self.state = self.graphs["resample"](self.state)
 
     def step(self, u, z, dt):
         """Predict, update and resample in one call (one replay)."""
-        self.state = self.graphs["step"](
-            self.state, self._t(u), self._t(z), self._t(dt), self.f, self.g,
-            self.state_pdf, self.measurement_pdf, self.stabilized)
+        with trace.span("shell.step"):
+            self.state = self.graphs["step"](
+                self.state, self._t(u), self._t(z), self._t(dt), self.f,
+                self.g, self.state_pdf, self.measurement_pdf, self.stabilized)
 
     def point_estimate(self):
-        return point_estimate(self.state)
+        with trace.span("shell.point_estimate", self.device):
+            return point_estimate(self.state)
 
     def point_covariance(self):
-        return point_covariance(self.state)
+        with trace.span("shell.point_covariance", self.device):
+            return point_covariance(self.state)
 
     def moments(self):
         """``(point_estimate, point_covariance)``, cached until the state
         changes."""
         if self._moments_cache is None:
-            est, cov = self.graphs["moments"](self.state.particles,
-                                              self.state.weights)
-            self._moments_cache = (est, torch.linalg.svdvals(cov)[0])
+            with trace.span("shell.moments", self.device):
+                est, cov = self.graphs["moments"](self.state.particles,
+                                                  self.state.weights)
+                self._moments_cache = (est, torch.linalg.svdvals(cov)[0])
         return self._moments_cache
 
     @property

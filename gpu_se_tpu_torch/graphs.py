@@ -68,6 +68,18 @@ call takes goes to the card through :func:`as_input`: staged in pinned
 memory and copied without waiting for the card, where
 ``torch.as_tensor(v, device=card)`` copies from pageable memory and
 synchronises.
+
+Every call is a span of the recorder (``gpu_se_tpu_torch.trace``):
+``graphed.<function>`` on the host, marked when its replay begins and
+when it returns (so its copies in come before the first mark and its
+hand-out after the second), with a child ``capture`` on a key's first
+call; and on the card a device span from a stamp before the first input
+copy (or the warm-up) to one after the last clone handed out. A call
+inside a caller's capture captures its two stamps into the caller's
+graph, so its span runs, nested in the caller's, at every replay. A
+call's span carries the key part and the kernels its graph launches
+(``(route, ((kernel, launches), ...))``; the route is None without
+``key``).
 """
 from __future__ import annotations
 
@@ -78,6 +90,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from gpu_se_tpu_torch import trace
 from gpu_se_tpu_torch.ops import counter_draw as _cdraw
 from gpu_se_tpu_torch.ops import resample_coarse as _rc
 from gpu_se_tpu_torch.ops import resample_pallas3 as _rp3
@@ -247,7 +260,8 @@ def _substitute(tree, it):
 class Entry:
     """One captured graph: its static inputs, the generators and constants
     it was captured with, its output tree, the kernel launches of one
-    replay and its memory pool's size."""
+    replay, its memory pool's size and its route (the key part and the
+    kernels one replay launches, by name: each call's span attribute)."""
 
     graph: torch.cuda.CUDAGraph
     static: list
@@ -256,6 +270,7 @@ class Entry:
     out: Any
     launches: dict
     pool_bytes: int
+    route: tuple
 
     def holds(self, gens: list, consts: list) -> bool:
         return (len(gens) == len(self.gens)
@@ -351,32 +366,58 @@ class Graphed:
         self.entries: dict = {}
         self.captures = 0
         self.replays = 0
+        self.span_name = "graphed." + getattr(fn, "__name__", "fn")
+        self.site = trace.site(self.span_name)
 
     def __call__(self, *args, **kwargs):
+        span = trace.begin(self.span_name)
+        try:
+            return self._call(span, args, kwargs)
+        finally:
+            trace.end(span)
+
+    def _call(self, span: int, args, kwargs):
         tensors, gens, consts = [], [], []
         spec = _flatten((args, kwargs), tensors, gens, consts)
-        if is_disabled(self) or not tensors or not on_card(tensors[0].device):
-            return self.fn(*args, **kwargs)
-        if capturing(tensors[0].device):
+        dev = tensors[0].device if tensors else None
+        if is_disabled(self) or not tensors or not on_card(dev):
+            trace.stamp(span, dev, trace.BEGIN)
+            out = self.fn(*args, **kwargs)
+            trace.stamp(span, dev, trace.END)
+            return out
+        if capturing(dev):
             # inside a caller's capture: the ops join it, and its
             # Graphed counts their launches at each of its replays
-            return self.fn(*args, **kwargs)
-        key = (spec, self.key() if self.key is not None else None)
+            trace.stamp_site(self.site, dev, trace.BEGIN)
+            out = self.fn(*args, **kwargs)
+            trace.stamp_site(self.site, dev, trace.END)
+            return out
+        part = self.key() if self.key is not None else None
+        key = (spec, part)
         entry = self.entries.get(key)
         if entry is not None and not entry.holds(gens, consts):
             del self.entries[key]          # frees the graph and its pool
             entry = None
+        trace.stamp(span, dev, trace.BEGIN)
         if entry is None:
+            first = trace.begin("capture")
             out = None
             if self.warm:
-                out = warm_up(self.fn, args, kwargs, tensors[0].device)
+                out = warm_up(self.fn, args, kwargs, dev)
             entry = self.entries[key] = self._capture(args, kwargs, tensors,
-                                                      gens, consts)
+                                                      gens, consts, part)
+            trace.end(first)
             if self.warm:
+                trace.annotate(span, entry.route)
+                trace.stamp(span, dev, trace.END)
                 return out
-        return self._replay(entry, tensors)
+        trace.annotate(span, entry.route)
+        out = self._replay(entry, tensors, span)
+        trace.stamp(span, dev, trace.END)
+        return out
 
-    def _capture(self, args, kwargs, tensors, gens, consts) -> Entry:
+    def _capture(self, args, kwargs, tensors, gens, consts,
+                 part) -> Entry:
         static = [_like(t) for t in tensors]
         s_args, s_kwargs = _substitute((args, kwargs), iter(static))
         counts = [k.launches for k in KERNELS]
@@ -388,13 +429,16 @@ class Graphed:
                 launches[k] = k.launches - c
                 k.launches = c             # the capture launched nothing
         self.captures += 1
+        kernels = tuple(sorted((k.__name__, n) for k, n in launches.items()))
         return Entry(graph, static, list(gens), list(consts), out, launches,
-                     pool)
+                     pool, (part, kernels))
 
-    def _replay(self, entry: Entry, tensors: list):
+    def _replay(self, entry: Entry, tensors: list, span: int):
         for s, t in zip(entry.static, tensors):
             s.copy_(t)
+        trace.mark(span, 0)
         entry.graph.replay()
+        trace.mark(span, 1)
         self.replays += 1
         for k, c in entry.launches.items():
             k.launches += c

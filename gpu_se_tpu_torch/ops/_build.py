@@ -73,17 +73,20 @@ _SIGNATURES = {
     # (stream, handle, flag, counted), the node (stream, handle, type,
     # body out); in a body graph: a handle (graph, default, out), a child
     # (graph, last, child), a set kernel (graph, last, handle, flag,
-    # counted), a node (graph, last, handle, type, body out); the count
+    # counted, the recorder's ring or null), a node (graph, last, handle,
+    # type, body out); the count
     "gst_cond_prepare": [],
     "gst_capture_handle": [_P, _U, _P],
     "gst_capture_set": [_P, _H, _P, _I],
     "gst_capture_cond": [_P, _H, _I, _P],
     "gst_graph_handle": [_P, _U, _P],
     "gst_graph_child": [_P, _P, _P],
-    "gst_graph_set": [_P, _P, _H, _P, _I],
+    "gst_graph_set": [_P, _P, _H, _P, _I, _P],
     "gst_graph_cond": [_P, _P, _H, _I, _P],
     "gst_cond_count": [_P],
     "gst_cond_count_reset": [],
+    # the span recorder's stamp (trace.cu): ring, tag, stream
+    "gst_stamp": [_P, _H, _P],
 }
 
 

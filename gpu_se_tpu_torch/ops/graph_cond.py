@@ -25,7 +25,10 @@ nodes itself (``csrc/graph_cond.cu``, CUDA 12.3 or later):
 
 Every WHILE iteration adds one to a count on the card
 (:func:`iterations`, :func:`reset_iterations`: each reads or writes the
-card, so call them outside a run). There is no plain version: a flag on
+card, so call them outside a run). When the span recorder
+(``gpu_se_tpu_torch.trace``) is armed at the capture, the same set kernel
+also stamps each WHILE iteration, and each taken IF node of its body, into
+the recorder's ring on the card. There is no plain version: a flag on
 the CPU raises, and so does a call outside a capture. The host-driven
 loop that does the same work from Python lives with its caller
 (``control/qp.py``).
@@ -38,6 +41,7 @@ from typing import Sequence, Union
 
 import torch
 
+from gpu_se_tpu_torch import trace
 from gpu_se_tpu_torch.ops import _build
 
 IF, WHILE = 0, 1
@@ -98,8 +102,9 @@ def prepare(device) -> None:
     _prepared.add(device.index)
 
 
-def _fill(lib, graph: int, items: Sequence[Item]):
-    """Append ``items`` to the body ``graph``, in order; the last node."""
+def _fill(lib, graph: int, items: Sequence[Item], ring: int = 0):
+    """Append ``items`` to the body ``graph``, in order; the last node. A
+    nested IF's set kernel stamps into ``ring`` (0: none) when taken."""
     last = ctypes.c_void_p(None)
     for item in items:
         if isinstance(item, If):
@@ -107,11 +112,11 @@ def _fill(lib, graph: int, items: Sequence[Item]):
             h = ctypes.c_ulonglong()
             _rc("handle", lib.gst_graph_handle(graph, 0, ctypes.byref(h)))
             _rc("set", lib.gst_graph_set(graph, ctypes.byref(last), h,
-                                         item.flag.data_ptr(), 0))
+                                         item.flag.data_ptr(), 0, ring))
             inner = ctypes.c_void_p()
             _rc("if", lib.gst_graph_cond(graph, ctypes.byref(last), h, IF,
                                          ctypes.byref(inner)))
-            _fill(lib, inner.value, item.body)
+            _fill(lib, inner.value, item.body, ring)
         elif isinstance(item, torch.cuda.CUDAGraph):
             _rc("child", lib.gst_graph_child(graph, ctypes.byref(last),
                                              item.raw_cuda_graph()))
@@ -124,16 +129,18 @@ def _fill(lib, graph: int, items: Sequence[Item]):
 def while_loop(flag: torch.Tensor, body: Sequence[Item]) -> None:
     """Insert ``WHILE { body; set <- flag }`` into the capture underway on
     the current stream; the body runs once before ``flag`` is first
-    read."""
+    read. Each iteration is counted, and stamped into the span recorder's
+    ring if it is armed now."""
     stream = _capturing(flag)
     lib = _build.load_library()
+    ring = trace.ring_pointer(flag.device)
     h = ctypes.c_ulonglong()
     _rc("handle", lib.gst_capture_handle(stream, 1, ctypes.byref(h)))
     graph = ctypes.c_void_p()
     _rc("while", lib.gst_capture_cond(stream, h, WHILE, ctypes.byref(graph)))
-    last = _fill(lib, graph.value, body)
+    last = _fill(lib, graph.value, body, ring)
     _rc("set", lib.gst_graph_set(graph.value, ctypes.byref(last), h,
-                                 flag.data_ptr(), 1))
+                                 flag.data_ptr(), 1, ring))
 
 
 def if_then(flag: torch.Tensor, body: Sequence[Item]) -> None:

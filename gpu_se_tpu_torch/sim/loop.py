@@ -15,6 +15,13 @@ conditional WHILE node inside the step's graph, ``control/qp.py``), the
 ``torch.where``s, the plant's Euler step and the point estimate. From
 the first step to the last nothing is read back to the host.
 
+``run.start`` and ``run.steps`` are the recorder's ``loop.start`` and
+``loop.steps`` spans (``gpu_se_tpu_torch.trace``), and each step a
+``loop.step`` span whose attribute is its event flags ``(predict,
+control)``. On the card ``loop.start`` is a device span, and so is each
+step's graphed call; ``loop.steps`` is a host span alone, so that the
+card's idle time between two steps lies outside every device span.
+
 The plant and measurement noise is drawn up front from the caller's
 ``torch.Generator``, one state draw and one measurement draw a step. As
 in the reference, each step adds the first coordinate of its draw to
@@ -28,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gpu_se_tpu_torch import graphs
+from gpu_se_tpu_torch import graphs, trace
 from gpu_se_tpu_torch.control import mpc as mpc_mod
 from gpu_se_tpu_torch.control.qp import SOLVED
 from gpu_se_tpu_torch.distributions.gaussian_sum import GaussianSum
@@ -90,6 +97,7 @@ def make_scan_loop(
     ts = np.linspace(0, end_time, int(end_time * 10))
     dt = float(ts[1])
     predict_mask, control_mask = event_masks(ts, dt_control, dt_predict)
+    flags = list(zip(predict_mask.tolist(), control_mask.tolist()))
 
     mpc_consts, mpc_step = mpc_mod.make_device_step(mpc)
     n_d = (mpc.M + 1) * mpc.Ni
@@ -164,27 +172,31 @@ def make_scan_loop(
         each row a whole 16 bytes, so every step's row is laid out
         alike)."""
         n_steps = len(ts) - 1
-        filter_gen.set_state(filter_state.generator.get_state())
-        state = dataclasses.replace(filter_state, generator=filter_gen)
-        noise = torch.zeros((n_steps, 4), dtype=torch.float32, device=device)
-        noise[:, 0] = measurement_pdf.draw(generator, (n_steps,))[:, 0]
-        noise[:, 1] = state_pdf.draw(generator, (n_steps,))[:, 0]
-        carry = (state, dev(x_plant), fallback.clone(),
-                 torch.zeros(mpc.No, dtype=torch.float32, device=device),
-                 torch.zeros((), dtype=torch.bool, device=device),
-                 torch.zeros(n_d, dtype=torch.float32, device=device),
-                 torch.zeros(m_rows, dtype=torch.float32, device=device))
+        with trace.span("loop.start", device):
+            filter_gen.set_state(filter_state.generator.get_state())
+            state = dataclasses.replace(filter_state, generator=filter_gen)
+            noise = torch.zeros((n_steps, 4), dtype=torch.float32,
+                                device=device)
+            noise[:, 0] = measurement_pdf.draw(generator, (n_steps,))[:, 0]
+            noise[:, 1] = state_pdf.draw(generator, (n_steps,))[:, 0]
+            carry = (state, dev(x_plant), fallback.clone(),
+                     torch.zeros(mpc.No, dtype=torch.float32, device=device),
+                     torch.zeros((), dtype=torch.bool, device=device),
+                     torch.zeros(n_d, dtype=torch.float32, device=device),
+                     torch.zeros(m_rows, dtype=torch.float32, device=device))
         return carry, noise
 
     def steps(carry, noise) -> LoopRecord:
         """Every step from ``start``'s carry: one replay a step on the
         card, no read to the host."""
         rec = []
-        for i in range(len(ts) - 1):
-            carry, out = step_g(*carry, noise[i], bool(predict_mask[i]),
-                                bool(control_mask[i]))
-            rec.append(out)
-        return LoopRecord(*(torch.stack(v) for v in zip(*rec)))
+        with trace.span("loop.steps"):
+            for i in range(len(ts) - 1):
+                span = trace.begin("loop.step", flags[i])
+                carry, out = step_g(*carry, noise[i], *flags[i])
+                trace.end(span)
+                rec.append(out)
+            return LoopRecord(*(torch.stack(v) for v in zip(*rec)))
 
     def run(filter_state, x_plant, generator: torch.Generator) -> LoopRecord:
         return steps(*start(filter_state, x_plant, generator))

@@ -91,7 +91,7 @@ def test_library_name_tracks_sources():
     assert [p.name for p in _build.sources()] == [
         "counter_draw.cu", "graph_cond.cu", "resample.cu",
         "resample_block.cu", "resample_coarse.cu", "resample_expand.cu",
-        "resample_merge.cu"]
+        "resample_merge.cu", "trace.cu"]
 
 
 def test_library_name_tracks_headers(tmp_path, monkeypatch):
@@ -102,7 +102,8 @@ def test_library_name_tracks_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert [p.name for p in _build.headers()] == [
-        "lower_bound.cuh", "merge_path.cuh", "warp_stage.cuh"]
+        "lower_bound.cuh", "merge_path.cuh", "trace_ring.cuh",
+        "warp_stage.cuh"]
     before = _build.library_path()
     header = csrc / "lower_bound.cuh"
     header.write_text(header.read_text() + "// edited\n")
