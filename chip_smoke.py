@@ -35,7 +35,15 @@ Phases, each of which raises on failure:
    verification hook's words bit-equal; slices of 2^21 samples
    concatenated bit-equal to the whole draw; timed at a rank's
    2^20-sample draw, rows, and at the GSUKF's 2^18 x 11, lanes-last, each
-   beside ``torch.randn`` plus ``torch.rand`` of the same shape;
+   beside ``torch.randn`` plus ``torch.rand`` of the same shape.
+   ``mixture_pdf`` (the filters' update density) bit-equal to
+   ``GaussianSum.pdf_t`` on the card at the flat PF's and the GSUKF's
+   column-major residuals (2^20 and 2^18 rows), bare and scaled, and on
+   a 3 x 5 mixture (the same kernel: its sizes are read at run time);
+   its log mode within ``LOG_ATOL``/``LOG_RTOL`` of the CPU's plain
+   version, far points included (some must underflow ``pdf`` to 0);
+   timed at both sizes on fresh inputs beside the einsum the port
+   called before;
 4. the CUDA tiled and flat steps against the committed reference step
    (``tests/data/torch_parity_step.npz``);
 5. the tiled main path: the tiled particle-filter step of ``bench.py``'s
@@ -283,7 +291,8 @@ those a search of every slot must read: ``searched_keys``) over 3.35
 TB/s, or its compare and add operations over 67 T/s (the H100's float32
 rate outside the tensor cores; the table has no int32 row), whichever is
 larger; a kernel timed under its bound fails the run. ``library_ms`` is ``counter_draw``'s ``torch.randn`` plus
-``torch.rand`` of the same shape, and null for the resample kernels, whose
+``torch.rand`` of the same shape, ``mixture_pdf``'s the einsum path the
+port called before (``einsum_pdf``), and null for the resample kernels, whose
 functions no single PyTorch call computes, and for ``graph_cond``, whose
 loop no PyTorch call runs on the card. ``graph_cond``'s launches are the
 WHILE iterations of (a) and (c), counted on the card, its time one
@@ -336,6 +345,7 @@ from gpu_se_tpu_torch.models import bioreactor as bio  # noqa: E402
 from gpu_se_tpu_torch.ops import _build  # noqa: E402
 from gpu_se_tpu_torch.ops import counter_draw as cdraw  # noqa: E402
 from gpu_se_tpu_torch.ops import graph_cond  # noqa: E402
+from gpu_se_tpu_torch.ops import mixture_pdf as mpdf  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_coarse as rc  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas2 as rp2  # noqa: E402
 from gpu_se_tpu_torch.ops import resample_pallas3 as rp3  # noqa: E402
@@ -489,6 +499,11 @@ KERNELS = {
                      "none (port-only): the partitionable threefry draw of "
                      "gpu_se_tpu/parallel/sharded.py:1015 and :1133",
                      cdraw.counter_draw),
+    # port-only: the reference's density is an XLA einsum
+    "mixture_pdf": ("gpu_se_tpu_torch/csrc/mixture_pdf.cu",
+                    "none (port-only): the einsum of GaussianSum.pdf, "
+                    "gpu_se_tpu/distributions/gaussian_sum.py:156",
+                    mpdf.mixture_pdf),
 }
 COUNTER_KEY = (0x1234ABCD, 0x0F0E0D0C)
 # the kernel each flat-filter route must launch once per step
@@ -999,6 +1014,97 @@ def phase_counter_draw(dev, card: str):
     return (err, *out["rows"])
 
 
+def einsum_pdf(meas: GaussianSum, x, scale):
+    """The update's density as the port computed it before
+    ``ops/mixture_pdf``: the einsum (cuBLAS's batched gemv on the card)
+    and its elementwise tail, times the prior weights; timed as
+    ``mixture_pdf``'s ``library_ms``, never called by the port."""
+    es = x[..., None, :] - meas.means
+    quad = torch.einsum("...di,dij,...dj->...d", es, meas.inv_cov, es)
+    comp = torch.exp(meas.log_const - 0.5 * quad)
+    return scale * torch.sum(meas.weights * comp, dim=-1)
+
+
+def phase_mixture_pdf(dev, card: str):
+    """``mixture_pdf`` against ``GaussianSum.pdf_t`` on the card, bit for
+    bit, at the filters' inputs on the bench rig's measurement mixture:
+    the residual ``z - g(x.T).T`` (a column-major view) of 2^20 particles
+    (the flat PF's) and of 2^18 (the GSUKF's Gaussians), bare and scaled
+    by prior weights; a mixture of 3 components over 5 outputs on rows;
+    the log mode against the plain version on the CPU within
+    ``LOG_ATOL``/``LOG_RTOL``, out to far points where ``pdf`` underflows
+    to 0 (some must).
+    Then timed at both inputs, fresh ones each call (out of the L2),
+    beside the bound, the plain version and the einsum the port called
+    before (``einsum_pdf``). Returns ``(max |error| of the log mode, (ms,
+    plain ms), bound, library ms)`` at 2^20; its launches here are not
+    counted."""
+    x0, _, meas = harness_rig(dev)
+    params = (meas.means, meas.inv_cov, meas.log_const, meas.weights)
+    z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    err = 0.0
+
+    def residual(n):
+        parts = x0.draw(gen, (n,))
+        return z - bio.static_outputs(parts.T).T
+
+    for n in (N, N_BANK):
+        resid = residual(n)
+        if resid.is_contiguous():
+            raise AssertionError("mixture_pdf: the residual is contiguous")
+        w = torch.rand((n,), generator=gen, device=dev)
+        assert_equal(f"mixture_pdf n={n} vs pdf_t", (meas.pdf(resid),),
+                     (meas.pdf_t(resid.T),))
+        assert_equal(f"mixture_pdf n={n} scaled vs pdf_t",
+                     (meas.pdf(resid, scale=w),),
+                     (w * meas.pdf_t(resid.T),))
+        far = 40.0 * resid
+        log_got = meas.logpdf(far).cpu()
+        log_want = mpdf.mixture_pdf_plain(
+            far.cpu(), *(p.cpu() for p in params), log=True)
+        if not torch.isfinite(log_got).all():
+            raise AssertionError(f"mixture_pdf n={n}: a non-finite log")
+        torch.testing.assert_close(log_got, log_want, rtol=mpdf.LOG_RTOL,
+                                   atol=mpdf.LOG_ATOL)
+        err = max(err, float((log_got - log_want).abs().max()))
+        zeros = int((meas.pdf(far) == 0).sum())
+        if zeros == 0:
+            raise AssertionError(f"mixture_pdf n={n}: no far row underflows "
+                                 "pdf to 0, so the log mode's finite "
+                                 "far values went unchecked")
+        log(f"mixture_pdf == pdf_t bit for bit at n={n} (column-major "
+            f"residual, bare and scaled); log mode within {err:.3g} of the "
+            f"plain version on the CPU, {zeros} far rows where pdf is 0")
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((3, 5, 5))
+    wide = GaussianSum.create(rng.standard_normal((3, 5)),
+                              a @ a.transpose(0, 2, 1) + 5 * np.eye(5),
+                              rng.random(3) + 0.1, device=dev)
+    rows = torch.randn((5, 1000003), generator=gen, device=dev).T
+    assert_equal("mixture_pdf run-time size (3 x 5) vs pdf_t",
+                 (wide.pdf(rows),), (wide.pdf_t(rows.T),))
+    log("mixture_pdf == pdf_t bit for bit on 3 components over 5 outputs, "
+        "1000003 rows")
+    out = {}
+    for n in (N, N_BANK):
+        def setup(n=n):
+            return residual(n), torch.rand((n,), generator=gen, device=dev)
+
+        bound = least_time(mpdf.pdf_bytes(n, 2), mpdf.pdf_ops(n, 2, 2))
+        times = time_pair(
+            f"mixture_pdf {n}", lambda x, w: meas.pdf(x, scale=w),
+            lambda x, w: mpdf.mixture_pdf_plain(x, *params, scale=w),
+            card, bound, setup=setup)
+        library_ms = device_ms(lambda x, w: einsum_pdf(meas, x, w),
+                               setup=setup)
+        log(f"time mixture_pdf {n}: the einsum path the port called before "
+            f"{library_ms:.4f} ms ({card})")
+        out[n] = times, bound, library_ms
+    zero_counts()
+    return (err, *out[N])
+
+
 def phase_merge_kernels_vs_plain(dev, seed: int) -> dict[str, float]:
     """``ends_merge_round`` at 5 and 30 payload columns, ``cumsum_merge``
     at 5 and 8 rows, ``coarse_gather`` at 5 and 6 rows, against their
@@ -1323,7 +1429,8 @@ def phase_flat_pf(dev, seed: int, card: str):
             torch.cuda.synchronize()
         counts = read_counts()
         expect_counts(f"flat filter, route {route}", counts,
-                      {k: warm + steps for k in ROUTE_KERNELS[route]})
+                      {k: warm + steps
+                       for k in ROUTE_KERNELS[route] + ("mixture_pdf",)})
         est, cov = filt.moments()
         if not (torch.isfinite(filt.particles).all()
                 and torch.isfinite(est).all() and torch.isfinite(cov)):
@@ -1740,7 +1847,8 @@ def phase_v2_path(dev, seed: int, card: str):
         torch.cuda.synchronize()
         counts = read_counts()
         expect_counts(f"v2 path W={window} B={block}", counts,
-                      {"compact": ROUTE_STEPS + 1, "expand": ROUTE_STEPS + 1})
+                      {"compact": ROUTE_STEPS + 1, "expand": ROUTE_STEPS + 1,
+                       "mixture_pdf": ROUTE_STEPS + 1})
         est = pf.point_estimate(state)
         if not (torch.isfinite(state.particles).all()
                 and torch.isfinite(est).all()):
@@ -1764,7 +1872,8 @@ def phase_v2_path(dev, seed: int, card: str):
         a, b = chained_pair(path, lambda s: step_g(s, window, block), state,
                             ROUTE_STEPS, "v2", step_g)
         expect_counts(f"{path}, graphed and eager", read_counts(),
-                      {"compact": 2 * ROUTE_STEPS, "expand": 2 * ROUTE_STEPS})
+                      {"compact": 2 * ROUTE_STEPS, "expand": 2 * ROUTE_STEPS,
+                       "mixture_pdf": 2 * ROUTE_STEPS})
         v2_times[path] = timed_pair(path,
                                     lambda s: step_g(s, window, block), a, b,
                                     card, GRAPH_TIMED, "v2", step_g)
@@ -1848,7 +1957,8 @@ def phase_gsukf(dev, seed: int, card: str):
     counts = read_counts()
     expect_counts("GSUKF path", counts,
                   {"compact": GSUKF_STEPS + GRAPH_WARM,
-                   "expand": GSUKF_STEPS + GRAPH_WARM})
+                   "expand": GSUKF_STEPS + GRAPH_WARM,
+                   "mixture_pdf": GSUKF_STEPS + GRAPH_WARM})
     if not torch.equal(filt.covariances, filt.covariances.mT):
         raise AssertionError("GSUKF path: covariances not exactly symmetric")
     est, cov = filt.moments()
@@ -2150,7 +2260,8 @@ def phase_graphed_shell(name: str, make, new_meas, dev, card: str,
         else:
             both("step", u, z, dt, path=f" {i}")
     expect_counts(f"(k) {name}", read_counts(),
-                  {"compact": 2 * GRAPH_STEPS, "expand": 2 * GRAPH_STEPS})
+                  {"compact": 2 * GRAPH_STEPS, "expand": 2 * GRAPH_STEPS,
+                   "mixture_pdf": 2 * GRAPH_STEPS})
     # every call a capture (a key's first: its warm-up) or a replay; a
     # key is also the inputs' strides, which some outputs change
     half = GRAPH_STEPS // 2
@@ -2176,7 +2287,8 @@ def phase_graphed_shell(name: str, make, new_meas, dev, card: str,
         for _ in range(2):
             both("step", u, z, dt, path=" back on auto")
         expect_counts(f"(k) {name} under impl('ends')", read_counts(),
-                      {"ends_merge_round": 6, "compact": 4, "expand": 4})
+                      {"ends_merge_round": 6, "compact": 4, "expand": 4,
+                       "mixture_pdf": 10})
     # tensors handed out, then three more calls
     est, cov = f_g.moments()
     held = tensors_of(f_g.state) + [est, cov]
@@ -2223,7 +2335,7 @@ def phase_graphed_shell(name: str, make, new_meas, dev, card: str,
     for _ in range(5):
         f_g.step(u, z, dt)
     expect_counts(f"(k) {name} replays", read_counts(),
-                  {"compact": 5, "expand": 5})
+                  {"compact": 5, "expand": 5, "mixture_pdf": 5})
     if f_g.graphs["step"].replays != before + 5:
         raise AssertionError(f"(k) {name}: replays not counted")
 
@@ -2683,8 +2795,10 @@ def qp_cases(dev, card: str) -> dict:
 
 
 def loop_counts(path: str, events: int) -> None:
-    """``compact`` and ``expand`` once per control event: the resample."""
-    expect_counts(path, read_counts(), {"compact": events, "expand": events})
+    """``mixture_pdf``, ``compact`` and ``expand`` once per control event:
+    the update and the resample."""
+    expect_counts(path, read_counts(), {"compact": events, "expand": events,
+                                        "mixture_pdf": events})
 
 
 def run_simulation(s, path: str, card: str) -> dict:
@@ -2707,8 +2821,8 @@ def run_simulation(s, path: str, card: str) -> dict:
     log(f"{path}: n={s.f.N_particles}, MPC P={s.K.P}: {s.update_count} "
         f"control events, {s.predict_count} predicts in {wall:.3f} s, "
         f"{ms:.3f} ms per control event; mpc_frac {s.mpc_frac}; performance "
-        f"{s.performance:.6g}; launches compact {s.update_count}, expand "
-        f"{s.update_count} ({card})")
+        f"{s.performance:.6g}; launches mixture_pdf, compact and expand "
+        f"{s.update_count} each ({card})")
     return {"ms_per_control_event": ms, "mpc_frac": s.mpc_frac,
             "performance": float(s.performance), "events": s.update_count}
 
@@ -3078,7 +3192,7 @@ def phase_instrumentation(dev, seed: int, card: str) -> dict:
     u = torch.tensor([0.06, 0.2], dtype=torch.float32, device=dev)
     z = bio.static_outputs(torch.from_numpy(X_SS)).to(torch.float32).to(dev)
     dt = 0.1
-    kernels = ROUTE_KERNELS["auto"]
+    kernels = ROUTE_KERNELS["auto"] + ("mixture_pdf",)
 
     def filt(n):
         return pf.ParticleFilter(f, g, n, x0, state_pdf, meas_pdf, seed=seed)
@@ -3251,9 +3365,11 @@ def shard_step_args(dev):
 
 W2_ROUTES = ("kernel", "a2a", "tiled ragged")
 # (h)'s entry points at W = 2 and the kernels each launches a step
-W2_STEPS = {"flat kernel": ("ends_merge_round", "counter_draw"),
-            "flat a2a": ("compact", "expand", "counter_draw"),
-            "gsukf kernel": ("ends_merge_round", "counter_draw"),
+W2_STEPS = {"flat kernel": ("ends_merge_round", "counter_draw",
+                            "mixture_pdf"),
+            "flat a2a": ("compact", "expand", "counter_draw", "mixture_pdf"),
+            "gsukf kernel": ("ends_merge_round", "counter_draw",
+                             "mixture_pdf"),
             "tiled ragged": ("compact", "expand")}
 N_BANK_W2 = 2 * N_BANK    # (h)'s global Gaussians at W = 2
 W2_TIMED = 5              # chained steps timed a W = 2 entry point
@@ -3379,7 +3495,8 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
         check_draws(f"sharded flat step, {name}", draws, 0, N, 1)
         # from_noise twice, then the chained steps and their warm-up
         expect_counts(f"sharded flat step, {name}", read_counts(),
-                      {**{k: SHARD_STEPS + SHARD_WARM + 2 for k in kernels},
+                      {**{k: SHARD_STEPS + SHARD_WARM + 2
+                          for k in kernels + ("mixture_pdf",)},
                        "counter_draw": SHARD_STEPS + SHARD_WARM})
         if not torch.isfinite(last.particles).all():
             raise AssertionError(f"sharded flat {name}: non-finite")
@@ -3437,7 +3554,8 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
                     2 * nx + 1)
         # from_noise, then 3 chained steps and their warm-up
         expect_counts(f"sharded GSUKF step, {name}", read_counts(),
-                      {**{k: 4 + SHARD_WARM for k in kernels},
+                      {**{k: 4 + SHARD_WARM
+                          for k in kernels + ("mixture_pdf",)},
                        "counter_draw": 3 + SHARD_WARM})
         if not torch.isfinite(last.covariances).all():
             raise AssertionError(f"sharded GSUKF {name}: non-finite")
@@ -3465,7 +3583,7 @@ def multi_w1(dev, seed: int, card: str, scen, mesh) -> dict:
     assert_equal("auto-sharded GSUKF step", (got.means, got.covariances),
                  (want.means, want.covariances))
     expect_counts("auto-sharded steps", read_counts(),
-                  {"compact": 4, "expand": 4})
+                  {"compact": 4, "expand": 4, "mixture_pdf": 4})
     log(f"multi-device (h), W=1 NCCL: auto-sharded flat (n={N}) and GSUKF "
         f"(N={n_b}) steps == single-device steps bit for bit ({card})")
 
@@ -3575,24 +3693,25 @@ CTRL_EVENTS = 5           # control events a run
 CTRL_DT = 0.1             # the filter's time step, dt_control
 # the flat control step's routes at full width and the kernels each
 # launches once a step a rank (ends_merge_round: once a block not skipped)
-CTRL_ROUTES = {"a2a": ("compact", "expand", "counter_draw"),
-               "kernel": ("ends_merge_round", "counter_draw")}
+CTRL_ROUTES = {"a2a": ("compact", "expand", "counter_draw", "mixture_pdf"),
+               "kernel": ("ends_merge_round", "counter_draw", "mixture_pdf")}
 # the other filters: (filter, route, global count at W = 1, kernels)
 CTRL_OTHERS = {"gsukf": ("gsukf", "kernel", N_BANK,
-                         ("ends_merge_round", "counter_draw")),
+                         ("ends_merge_round", "counter_draw",
+                          "mixture_pdf")),
                "tiled": ("tiled", "ragged", N, ("compact", "expand"))}
 CTRL_TIMEOUT_S = 300
 # (j): the sharded entry points at W = 1 whose factories graph them, and
 # the kernels each launches a step; those that stay eager (the ragged
 # exchange reads its sizes on the host)
 SHARD_GRAPHED = {
-    "flat xla": ("counter_draw",),
-    "flat kernel": ("ends_merge_round", "counter_draw"),
-    "flat a2a_ring_v4": ("compact", "expand", "counter_draw"),
-    "flat a2a_ring": ("counter_draw",),
-    "gsukf xla": ("counter_draw",),
-    "gsukf kernel": ("ends_merge_round", "counter_draw"),
-    "gsukf a2a_ring": ("counter_draw",),
+    "flat xla": ("counter_draw", "mixture_pdf"),
+    "flat kernel": ("ends_merge_round", "counter_draw", "mixture_pdf"),
+    "flat a2a_ring_v4": ("compact", "expand", "counter_draw", "mixture_pdf"),
+    "flat a2a_ring": ("counter_draw", "mixture_pdf"),
+    "gsukf xla": ("counter_draw", "mixture_pdf"),
+    "gsukf kernel": ("ends_merge_round", "counter_draw", "mixture_pdf"),
+    "gsukf a2a_ring": ("counter_draw", "mixture_pdf"),
     "tiled ring": ("compact", "expand"),
 }
 SHARD_EAGER = ("flat a2a", "flat a2a_xla", "gsukf a2a", "tiled ragged")
@@ -3945,7 +4064,8 @@ def ctrl_graphed(mesh, mpc, lin, seed: int, card: str) -> dict:
                                  mpc)}
     expect_counts("(j) W=1 control step, graphed and eager", read_counts(),
                   {"ends_merge_round": 2 * CTRL_EVENTS,
-                   "counter_draw": 2 * CTRL_EVENTS})
+                   "counter_draw": 2 * CTRL_EVENTS,
+                   "mixture_pdf": 2 * CTRL_EVENTS})
     ctrl_same("W=1 control step graphed vs eager", recs["graphed"],
               recs["eager"])
     for a, b in zip(recs["graphed"], recs["eager"]):
@@ -4004,11 +4124,14 @@ def phase_serial_oracle(dev, card: str) -> dict:
 # ----------------------------------------------------------------------
 # (i) the experiments layer
 # ----------------------------------------------------------------------
-def exp_counts(path: str, n: int, calls: int, resamples: bool) -> None:
+def exp_counts(path: str, n: int, calls: int, resamples: bool,
+               updates: bool) -> None:
     """``compact`` and ``expand`` once a call of an op that resamples at
-    a size the router sends to them (n >= 2^12 on the card), else none."""
+    a size the router sends to them (n >= 2^12 on the card), else none;
+    ``mixture_pdf`` once a call of an op that updates."""
     k = calls if resamples and n >= 2**12 else 0
-    expect_counts(path, read_counts(), {"compact": k, "expand": k})
+    expect_counts(path, read_counts(), {"compact": k, "expand": k,
+                                        "mixture_pdf": calls * updates})
 
 
 def exp_run_seqs(name: str, entries, log2s, gpu: bool, card: str) -> dict:
@@ -4016,7 +4139,7 @@ def exp_run_seqs(name: str, entries, log2s, gpu: bool, card: str) -> dict:
     before it and read after it; every time finite and positive. Returns
     the medians in ms."""
     medians = {}
-    for op, fn, resamples in entries:
+    for op, fn, resamples, updates in entries:
         for log2 in log2s:
             n = int(2.0 ** log2)
             zero_counts()
@@ -4024,7 +4147,8 @@ def exp_run_seqs(name: str, entries, log2s, gpu: bool, card: str) -> dict:
                 _, (seq,) = fn(np.array([n]), EXP_RUNS, gpu)
             # the warm-up calls (a graphed op's captures) and the runs
             exp_counts(f"(i) {name} {op}, n={n}, gpu={gpu}", n,
-                       EXP_RUNS + sum(warms) if gpu else 0, resamples)
+                       EXP_RUNS + sum(warms) if gpu else 0, resamples,
+                       updates)
             if seq.shape != (EXP_RUNS,) or not (np.isfinite(seq).all()
                                                 and (seq > 0).all()):
                 raise AssertionError(f"(i) {name} {op} n={n}: {seq}")
@@ -4037,11 +4161,12 @@ def exp_run_seqs(name: str, entries, log2s, gpu: bool, card: str) -> dict:
 
 
 def exp_summary(path: str, fn, n: int, events: int, card: str) -> dict:
-    """One closed-loop summary at ``EXP_LOOP_END`` with ``compact`` and
-    ``expand`` launched ``events`` times."""
+    """One closed-loop summary at ``EXP_LOOP_END`` with ``mixture_pdf``,
+    ``compact`` and ``expand`` launched ``events`` times."""
     zero_counts()
     s = fn(n, DT_CONTROL, DT_CONTROL, 0, end_time=EXP_LOOP_END)
-    expect_counts(path, read_counts(), {"compact": events, "expand": events})
+    expect_counts(path, read_counts(), {"compact": events, "expand": events,
+                                        "mixture_pdf": events})
     if not (np.isfinite(s["performance"]) and 0 <= s["mpc_frac"] <= 1
             and s["runtime"] >= 0):
         raise AssertionError(f"{path}: {s}")
@@ -4087,16 +4212,18 @@ def exp_graphed(card: str) -> dict:
     pf_state, pf_ops = exp_fb.build("pf", N, True)
     gsf_state, gsf_ops = exp_fb.build("gsf", N_BANK, True)
     bd_state, bd_ops = exp_fb.breakdown_ops(EXP_BREAKDOWN_N, True)
-    groups = [(f"PF {k} n={N}", op, pf_state, k in ("resample", "step"))
-              for k, op in pf_ops.items()]
+    groups = [(f"PF {k} n={N}", op, pf_state, k in ("resample", "step"),
+               k in ("update", "step")) for k, op in pf_ops.items()]
     groups += [(f"GSF {k} N={N_BANK}", gsf_ops[k], gsf_state,
-                k == "resample") for k in ("predict", "update", "resample")]
+                k == "resample", k == "update")
+               for k in ("predict", "update", "resample")]
     groups += [(f"GSF sigma_points N={N_BANK}", exp_gsf.sigma_points_op,
-                gsf_state, False)]
+                gsf_state, False, False)]
     groups += [(f"breakdown {k} n={EXP_BREAKDOWN_N}", op, bd_state,
-                k == "full_step") for k, op in bd_ops.items()]
+                k == "full_step", k == "full_step")
+               for k, op in bd_ops.items()]
     out = {}
-    for path, op, state, resamples in groups:
+    for path, op, state, resamples, updates in groups:
         zero_counts()
         a, b = chained_pair(f"experiments {path}", op, state,
                             EXP_GRAPH_STEPS, "(i)")
@@ -4104,8 +4231,9 @@ def exp_graphed(card: str) -> dict:
                                EXP_GRAPH_TIMED, "(i)")
         calls = 2 * (EXP_GRAPH_STEPS + 2 * (EXP_GRAPH_TIMED + 1))
         expect_counts(f"(i) graphed {path}", read_counts(),
-                      {"compact": calls, "expand": calls} if resamples
-                      else {})
+                      {"compact": calls * resamples,
+                       "expand": calls * resamples,
+                       "mixture_pdf": calls * updates})
         if op.replays < 2 * EXP_GRAPH_TIMED:
             raise AssertionError(f"(i) {path}: {op.replays} replays")
         exp_fb.release(op)
@@ -4115,14 +4243,15 @@ def exp_graphed(card: str) -> dict:
 
 
 def experiments(dev, card: str) -> dict:
-    pf_entries = [("predict", exp_pf.predict_run_seq, False),
-                  ("update", exp_pf.update_run_seq, False),
-                  ("resample", exp_pf.resample_run_seq, True),
-                  ("step", exp_pf.step_run_seq, True)]
-    gsf_entries = [("predict", exp_gsf.predict_run_seq, False),
-                   ("update", exp_gsf.update_run_seq, False),
-                   ("resample", exp_gsf.resample_run_seq, True),
-                   ("sigma_points", exp_gsf.sigma_points_run_seq, False)]
+    pf_entries = [("predict", exp_pf.predict_run_seq, False, False),
+                  ("update", exp_pf.update_run_seq, False, True),
+                  ("resample", exp_pf.resample_run_seq, True, False),
+                  ("step", exp_pf.step_run_seq, True, True)]
+    gsf_entries = [("predict", exp_gsf.predict_run_seq, False, False),
+                   ("update", exp_gsf.update_run_seq, False, True),
+                   ("resample", exp_gsf.resample_run_seq, True, False),
+                   ("sigma_points", exp_gsf.sigma_points_run_seq, False,
+                    False)]
     metric = {"metric": "experiments", "unit": "ms",
               "graphed_vs_eager": exp_graphed(card),
               "pf_run_seq_card": exp_run_seqs("PF", pf_entries, EXP_PF_LOG2,
@@ -4145,7 +4274,7 @@ def experiments(dev, card: str) -> dict:
     # the full step's, the last op timed
     calls = EXP_RUNS + warms[-1]
     expect_counts("(i) breakdown", read_counts(),
-                  {"compact": calls, "expand": calls})
+                  {"compact": calls, "expand": calls, "mixture_pdf": calls})
     metric["breakdown_ms"] = {k: float(np.median(v)) * 1e3
                               for k, v in rows.items()}
     zero_counts()
@@ -4197,7 +4326,7 @@ def experiments(dev, card: str) -> dict:
             np.array([N]), EXP_POWER_T_RUN, True)
     calls = steps + sum(warms)
     expect_counts("(i) energy", read_counts(),
-                  {"compact": calls, "expand": calls})
+                  {"compact": calls, "expand": calls, "mixture_pdf": calls})
     (_, cpu_j, card_j), = exp_power.per_step([N], [(steps, (e_cpu, e_card))])
     samples = exp_power.step_energy.raw.last_samples
     span = float(samples[0, -1] - samples[0, 0])
@@ -4265,6 +4394,8 @@ def main() -> int:
     errs = phase_kernels_vs_plain(dev, args.seed)
     (errs["counter_draw"], draw_times, draw_bound,
      draw_library_ms) = phase_counter_draw(dev, card)
+    (errs["mixture_pdf"], pdf_times, pdf_bound,
+     pdf_library_ms) = phase_mixture_pdf(dev, card)
     with watchdog(WATCHDOG_S, "the edge cases and repeats of compact and "
                               "expand"):
         phase_edge_cases(dev, args.seed)
@@ -4308,12 +4439,14 @@ def main() -> int:
     multi_metric = phase_multi_device(dev, args.seed, card, scen)
     control_metric = phase_control(dev, args.seed, card, sim_b, K_cpu)
     exp_metric = phase_experiments(dev, card)
-    times.update(merge_times, counter_draw=draw_times)
-    bounds.update(merge_bounds, counter_draw=draw_bound)
+    times.update(merge_times, counter_draw=draw_times, mixture_pdf=pdf_times)
+    bounds.update(merge_bounds, counter_draw=draw_bound,
+                  mixture_pdf=pdf_bound)
     # no single PyTorch call computes any of the resample kernels'
     # functions (each is a sorted search, a compaction or a merge, and a
     # gather): their library_ms stays null
-    library = {"counter_draw": draw_library_ms}
+    library = {"counter_draw": draw_library_ms,
+               "mixture_pdf": pdf_library_ms}
     for name in KERNELS:
         if times[name][0] < bounds[name][0]:
             raise AssertionError(f"{name}: {times[name][0]:.4f} ms is under "

@@ -4,7 +4,9 @@ Counterpart of ``gpu_se_tpu/distributions/gaussian_sum.py``: the same
 host float64 precompute of the Cholesky factors, inverse covariances
 and normalization constants, cast to float32 on the target device; the
 row-major ``pdf`` / ``logpdf`` / ``draw`` of the flat particle filter and
-the lanes-last ``pdf_t`` / ``draw_t`` of the tiled one; and the stateful
+the GSUKF (the densities through ``ops/mixture_pdf``: one hand-written
+kernel on the card) and the lanes-last ``pdf_t`` / ``draw_t`` of the
+tiled one; and the stateful
 :class:`MultivariateGaussianSum` shell, and its replay-deterministic
 :class:`DeterministicGaussianSum`.
 
@@ -29,7 +31,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from gpu_se_tpu_torch.ops import counter_draw
+from gpu_se_tpu_torch.ops import counter_draw, mixture_pdf
 
 
 @dataclass(frozen=True)
@@ -93,46 +95,37 @@ class GaussianSum:
         return self.means.shape[1]
 
     # ------------------------------------------------------------------
-    def pdf(self, x: torch.Tensor) -> torch.Tensor:
+    def pdf(self, x: torch.Tensor, scale=None) -> torch.Tensor:
         """Mixture pdf at a batch of points ``x (..., Nx)``; returns
-        ``(...)``."""
-        x = torch.atleast_2d(x)
-        es = x[..., None, :] - self.means                    # (..., Nd, Nx)
-        quad = torch.einsum("...di,dij,...dj->...d", es, self.inv_cov, es)
-        comp = torch.exp(self.log_const - 0.5 * quad)
-        return torch.sum(self.weights * comp, dim=-1)
+        ``(...)``, times ``scale (...)`` where given (a filter's prior
+        weights). One launch of ``ops/mixture_pdf``'s kernel for a CUDA
+        ``x``, its plain version for a CPU one: :meth:`pdf_t`'s order
+        over rows."""
+        return mixture_pdf.mixture_pdf(x, self.means, self.inv_cov,
+                                       self.log_const, self.weights,
+                                       scale=scale)
 
     def logpdf(self, x: torch.Tensor) -> torch.Tensor:
         """Log mixture pdf at ``x (..., Nx)`` by log-sum-exp over the
         components, so a far point underflows to a finite log rather
-        than to ``log 0``; returns ``(...)``."""
-        x = torch.atleast_2d(x)
-        es = x[..., None, :] - self.means
-        quad = torch.einsum("...di,dij,...dj->...d", es, self.inv_cov, es)
-        logs = self.log_const - 0.5 * quad + torch.log(self.weights)
-        return torch.logsumexp(logs, dim=-1)
+        than to ``log 0``; returns ``(...)``. The kernel's ``log`` mode
+        for a CUDA ``x``, as :meth:`pdf`."""
+        return mixture_pdf.mixture_pdf(x, self.means, self.inv_cov,
+                                       self.log_const, self.weights,
+                                       log=True)
 
     def pdf_t(self, x: torch.Tensor) -> torch.Tensor:
         """Lanes-last mixture pdf: ``x`` is ``(Nx, ...)``; returns ``(...)``.
 
         The quadratic form is unrolled over the components and state
         dims in the reference's order (``(e @ inv_cov) . e`` row-major),
-        one elementwise op at a time, so no step is fused or reassociated.
+        one elementwise op at a time, so no step is fused or reassociated:
+        ``ops/mixture_pdf``'s plain version over lanes, whose order the
+        kernel behind :meth:`pdf` keeps.
         """
-        total = None
-        for d in range(self.n_components):
-            es = [x[i] - self.means[d, i] for i in range(self.n_dim)]
-            quad = None
-            for i in range(self.n_dim):
-                acc = None
-                for j in range(self.n_dim):
-                    term = self.inv_cov[d, j, i] * es[j]
-                    acc = term if acc is None else acc + term
-                t = es[i] * acc
-                quad = t if quad is None else quad + t
-            comp = self.weights[d] * torch.exp(self.log_const[d] - 0.5 * quad)
-            total = comp if total is None else total + comp
-        return total
+        return mixture_pdf.mixture_pdf_plain(
+            x.movedim(0, -1), self.means, self.inv_cov, self.log_const,
+            self.weights)
 
     # ------------------------------------------------------------------
     def draw(self, generator: torch.Generator, shape=(1,)) -> torch.Tensor:

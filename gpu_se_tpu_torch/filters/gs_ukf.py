@@ -45,6 +45,7 @@ from gpu_se_tpu_torch.filters.resampling import (
     systematic_resample_bank,
     systematic_resample_bank_from_r,
 )
+from gpu_se_tpu_torch.ops.mixture_pdf import mixture_pdf
 from gpu_se_tpu_torch.ops.reduce import (
     blocked_outer_sum,
     blocked_sum,
@@ -259,7 +260,7 @@ def update_core(means, covariances, weights, u, z, g: Callable,
     new_means, new_covs = new_means_t.T, covs_new_t.permute(2, 0, 1)
     if return_eta:
         return new_means, new_covs, eta
-    return new_means, new_covs, weights * measurement_pdf.pdf(eta)
+    return new_means, new_covs, measurement_pdf.pdf(eta, scale=weights)
 
 
 def update(state: GSUKFState, u, z, g: Callable,
@@ -407,10 +408,13 @@ class GaussianSumUnscentedKalmanFilter:
                 self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
 
     def update(self, u, z):
-        with trace.span("shell.update"):
+        with trace.span("shell.update") as span:
+            launched = mixture_pdf.launches
             self.state = self.graphs["update"](
                 self.state, self._t(u), self._t(z), self.g,
                 self.measurement_pdf, self.stabilized)
+            trace.annotate(span, (("mixture_pdf",
+                                   mixture_pdf.launches - launched),))
 
     def resample(self):
         with trace.span("shell.resample"):

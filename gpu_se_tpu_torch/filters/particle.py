@@ -33,6 +33,7 @@ from gpu_se_tpu_torch.filters.resampling import (
     systematic_resample,
     systematic_resample_from_r,
 )
+from gpu_se_tpu_torch.ops.mixture_pdf import mixture_pdf
 from gpu_se_tpu_torch.ops.reduce import (
     blocked_outer_sum,
     blocked_sum,
@@ -91,9 +92,10 @@ def _residuals(particles, u, z, g):
 
 def update(state: PFState, u, z, g: Callable,
            measurement_pdf: GaussianSum) -> PFState:
-    """``w_i *= p(z - g(x_i, u))``."""
-    ws = measurement_pdf.pdf(_residuals(state.particles, u, z, g))
-    return dataclasses.replace(state, weights=state.weights * ws)
+    """``w_i *= p(z - g(x_i, u))``: the prior weights are the density's
+    ``scale``, so the multiply is its last rounding."""
+    return dataclasses.replace(state, weights=measurement_pdf.pdf(
+        _residuals(state.particles, u, z, g), scale=state.weights))
 
 
 def update_stabilized(state: PFState, u, z, g: Callable,
@@ -232,10 +234,13 @@ class ParticleFilter:
                 self.state, self._t(u), self._t(dt), self.f, self.state_pdf)
 
     def update(self, u, z):
-        with trace.span("shell.update"):
+        with trace.span("shell.update") as span:
+            launched = mixture_pdf.launches
             self.state = self.graphs["update"](
                 self.state, self._t(u), self._t(z), self.g,
                 self.measurement_pdf, self.stabilized)
+            trace.annotate(span, (("mixture_pdf",
+                                   mixture_pdf.launches - launched),))
 
     def resample(self):
         with trace.span("shell.resample"):

@@ -92,6 +92,7 @@ import torch
 
 from gpu_se_tpu_torch import trace
 from gpu_se_tpu_torch.ops import counter_draw as _cdraw
+from gpu_se_tpu_torch.ops import mixture_pdf as _mpdf
 from gpu_se_tpu_torch.ops import resample_coarse as _rc
 from gpu_se_tpu_torch.ops import resample_pallas3 as _rp3
 from gpu_se_tpu_torch.ops import resample_pallas4 as _rp4
@@ -99,7 +100,8 @@ from gpu_se_tpu_torch.ops import resample_pallas_block as _rpb
 
 # every hand-written kernel's wrapper, each with a ``launches`` count
 KERNELS = (_rp4.compact, _rp4.expand, _rpb.ends_merge_round,
-           _rp3.cumsum_merge, _rc.coarse_gather, _cdraw.counter_draw)
+           _rp3.cumsum_merge, _rc.coarse_gather, _cdraw.counter_draw,
+           _mpdf.mixture_pdf)
 
 
 _DISABLED: list = []     # the open ``disabled`` contexts' sets, or None

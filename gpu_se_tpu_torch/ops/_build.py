@@ -37,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _H = ctypes.c_ulonglong      # a conditional node's handle
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # the entries of a compact tile; the keys an expand block stages at most;
     # the threads of a merge-path block; the merged items one of them walks
@@ -87,6 +88,10 @@ _SIGNATURES = {
     "gst_cond_count_reset": [],
     # the span recorder's stamp (trace.cu): ring, tag, stream
     "gst_stamp": [_P, _H, _P],
+    # x, n, its row and column strides, nd, ny, means, inv_cov,
+    # log_const, weights, scale (or null), its stride, log, out, stream
+    "gst_mixture_pdf": [_P, _L, _L, _L, _I, _I, _P, _P, _P, _P, _P, _L, _I,
+                        _P, _P],
 }
 
 

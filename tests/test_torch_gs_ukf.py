@@ -9,8 +9,8 @@ made by numpy and a fixed ``r`` injected into both. Tolerances:
   covariances of ``update_core`` / ``update_stabilized``: bit-equal (the
   same float32 ops in the same order; the port's square root is
   correctly rounded, as the reference's);
-* weights after an update: ``rtol=1e-5`` (``exp`` and the mixture's
-  einsum round differently);
+* weights after an update: ``rtol=1e-5`` (``exp``, and the reference's
+  einsum against the port's unrolled density, round differently);
 * the resample given the reference's ``ends``: bit-equal; the whole step
   with the port's own ``ends``: rows whose ancestor moved with an
   ``ends`` entry on a cumsum tie may differ (at most ``STEP_TIE_ROWS``

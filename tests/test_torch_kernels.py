@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpu_se_tpu_torch import convert, rig
+from gpu_se_tpu_torch import convert, rig, trace
 from gpu_se_tpu_torch.distributions import GaussianSum
 from gpu_se_tpu_torch.filters import gs_ukf as gsf
 from gpu_se_tpu_torch.filters import particle as pf
@@ -28,6 +28,7 @@ from gpu_se_tpu_torch.filters import resampling as rs
 from gpu_se_tpu_torch.models import bioreactor as bio
 from gpu_se_tpu_torch.ops import _build
 from gpu_se_tpu_torch.ops import counter_draw as cd
+from gpu_se_tpu_torch.ops import mixture_pdf as mpdf
 from gpu_se_tpu_torch.ops import resample_coarse as rc
 from gpu_se_tpu_torch.ops import resample_pallas2 as rp2
 from gpu_se_tpu_torch.ops import resample_pallas3 as rp3
@@ -44,8 +45,8 @@ REGIMES = ["heavy", "near_uniform"]
 # output rows of one 4096-particle step that may differ from the
 # reference's: one per `ends` entry moved by a cumsum tie (0-4 seen)
 STEP_TIE_ROWS = 8
-# the GSUKF on the card: the weights go through the mixture's einsum
-# (cuBLAS) and exp, an ulp or so off the reference's
+# the GSUKF on the card: the weights go through the density kernel
+# (``pdf_t``'s order) and expf, an ulp or so off the reference's einsum
 W_RTOL = 1e-5
 
 
@@ -72,15 +73,26 @@ def cuda():
 
 def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors the wrappers never build or load the library and
-    count no launch."""
+    count no launch: the resample's and the mixture density's (the
+    filters' update, ``GaussianSum.pdf`` and ``logpdf``)."""
     parts, w, r = _case(4096, "heavy")
-    before = (rp4.compact.launches, rp4.expand.launches)
+    before = (rp4.compact.launches, rp4.expand.launches,
+              mpdf.mixture_pdf.launches)
     ends = ends_from_weights(torch.from_numpy(w), torch.tensor(r))
     x = torch.from_numpy(parts)
     got = rp4.resample_core(x, ends)
     want = rp4.resample_core_plain(x, ends)
     assert all(torch.equal(g, wt) for g, wt in zip(got, want))
-    assert (rp4.compact.launches, rp4.expand.launches) == before
+    meas = GaussianSum.create(*rig.bench_rig()[2], device="cpu")
+    params = (meas.means, meas.inv_cov, meas.log_const, meas.weights)
+    resid = 3.0 * x[:2].T
+    prior = torch.from_numpy(w)
+    assert torch.equal(meas.pdf(resid, scale=prior), mpdf.mixture_pdf_plain(
+        resid, *params, scale=prior))
+    assert torch.equal(meas.logpdf(resid), mpdf.mixture_pdf_plain(
+        resid, *params, log=True))
+    assert (rp4.compact.launches, rp4.expand.launches,
+            mpdf.mixture_pdf.launches) == before
     assert _build._lib is None
 
 
@@ -89,7 +101,7 @@ def test_library_name_tracks_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     assert [p.name for p in _build.sources()] == [
-        "counter_draw.cu", "graph_cond.cu", "resample.cu",
+        "counter_draw.cu", "graph_cond.cu", "mixture_pdf.cu", "resample.cu",
         "resample_block.cu", "resample_coarse.cu", "resample_expand.cu",
         "resample_merge.cu", "trace.cu"]
 
@@ -1144,3 +1156,162 @@ def test_qp_device_loop_equals_host_driven_on_card(cuda, name):
     assert (step.captures, step.replays) == (1, 2)
     for g, w in zip(got, dataclasses.astuple(host_sol)):
         assert torch.equal(g, w)
+
+
+# ----------------------------------------------------------------------
+# mixture_pdf: the measurement density of the flat PF's and the GSUKF's
+# updates
+# ----------------------------------------------------------------------
+def _meas(dev):
+    """The benchmark's measurement mixture (``pf_2p20``'s, the bench
+    rig's): two components over two outputs."""
+    return GaussianSum.create(*rig.bench_rig()[2], device=dev)
+
+
+def _residual(n, dev, seed):
+    """The flat PF's residual ``z - g(x.T).T`` at ``n`` particles drawn
+    about the steady state, as ``particle.update`` forms it: a
+    column-major view, never copied."""
+    x0 = GaussianSum.create(*rig.bench_rig()[0], device=dev)
+    parts = x0.draw(torch.Generator(device=dev).manual_seed(seed), (n,))
+    z = bio.static_outputs(torch.from_numpy(rig.X_SS)).to(torch.float32)
+    resid = z.to(dev) - bio.static_outputs(parts.T).T
+    assert not resid.is_contiguous()
+    return resid
+
+
+def _wide(dev, seed=3):
+    """A mixture of 3 components over 5 outputs, wider than the main
+    paths' 2 x 2."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((3, 5, 5))
+    return GaussianSum.create(rng.standard_normal((3, 5)),
+                              a @ a.transpose(0, 2, 1) + 5 * np.eye(5),
+                              rng.random(3) + 0.1, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2**20, 1000003])
+def test_mixture_pdf_equals_pdf_t_on_card(cuda, n):
+    """The kernel's density of the flat PF's residual (a non-contiguous
+    view) equals ``pdf_t`` evaluated by torch on the card bit for bit:
+    both round every difference, product and sum on its own in one
+    order, and torch's ``exp`` on the card is the same ``expf``. Scaled
+    by prior weights it equals the separate multiply. One launch a
+    call."""
+    meas = _meas(cuda)
+    resid = _residual(n, cuda, n)
+    w = torch.rand((n,), generator=torch.Generator(device=cuda).manual_seed(
+        1), device=cuda)
+    before = mpdf.mixture_pdf.launches
+    got = meas.pdf(resid)
+    scaled = meas.pdf(resid, scale=w)
+    assert mpdf.mixture_pdf.launches == before + 2
+    want = meas.pdf_t(resid.T)
+    assert torch.equal(got, want)
+    assert torch.equal(scaled, w * want)
+    assert (got > 0).all() and got.shape == (n,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2**20, 1000003])
+def test_mixture_pdf_run_time_size_on_card(cuda, n):
+    """Three components over five outputs take the same kernel, its
+    sizes read at run time: bit-equal to ``pdf_t`` on rows read
+    column-major and row-major."""
+    gs = _wide(cuda)
+    cols = torch.randn((5, n), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(2))
+    want = gs.pdf_t(cols)
+    assert torch.equal(gs.pdf(cols.T), want)
+    assert torch.equal(gs.pdf(cols.T.contiguous()), want)
+
+
+@pytest.mark.gpu
+def test_mixture_pdf_refuses_what_it_does_not_take_on_card(cuda):
+    """The library refuses a scale in the log mode, an empty mixture and
+    one past a block's shared memory, and the wrapper raises on an input
+    it does not take: no fallback."""
+    meas = _meas(cuda)
+    resid = _residual(4099, cuda, 5)
+    lib = _build.load_library()
+    x = torch.zeros((8, 5), device=cuda)
+    out = torch.empty((8,), device=cuda)
+    gs = _wide(cuda)
+    args = (gs.means.data_ptr(), gs.inv_cov.data_ptr(),
+            gs.log_const.data_ptr(), gs.weights.data_ptr())
+
+    def call(nd, ny, scale, log):
+        return lib.gst_mixture_pdf(x.data_ptr(), 8, ny, 1, nd, ny, *args,
+                                   scale, 1, log, out.data_ptr(),
+                                   _build.stream(cuda))
+
+    assert call(3, 5, None, 0) == 0 and call(3, 5, None, 1) == 0
+    assert call(3, 5, out.data_ptr(), 1) != 0
+    assert call(0, 5, None, 0) != 0
+    assert call(3, 64, None, 0) != 0         # 3 (64 + 64^2 + 2) floats
+    big = GaussianSum.create(np.zeros((3, 64)), np.stack([np.eye(64)] * 3),
+                             np.ones(3), device=cuda)
+    with pytest.raises(RuntimeError):
+        big.pdf(torch.zeros((8, 64), device=cuda))
+    with pytest.raises(TypeError):
+        meas.pdf(resid.double())
+    with pytest.raises(ValueError):
+        meas.to("cpu").pdf(resid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wide", [False, True])
+def test_mixture_logpdf_on_card(cuda, wide):
+    """The log mode against the plain ``logpdf`` on the CPU within
+    ``LOG_ATOL`` and ``LOG_RTOL`` (the terms bit-equal; the card's expf
+    and logf against the CPU's exp and log in the log-sum-exp), out to
+    points where ``pdf`` underflows to 0 and the log stays finite."""
+    gs = _wide(cuda) if wide else _meas(cuda)
+    n = 100003
+    if wide:
+        x = 30.0 * torch.randn((5, n), device=cuda).T
+    else:
+        x = 40.0 * _residual(n, cuda, 7)
+    got = gs.logpdf(x)
+    want = mpdf.mixture_pdf_plain(
+        x.cpu(), gs.means.cpu(), gs.inv_cov.cpu(), gs.log_const.cpu(),
+        gs.weights.cpu(), log=True)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=mpdf.LOG_RTOL,
+                               atol=mpdf.LOG_ATOL)
+    underflow = gs.pdf(x) == 0
+    assert underflow.any() and torch.isfinite(got[underflow]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["pf", "gsukf"])
+def test_one_mixture_pdf_launch_per_graphed_update_on_card(cuda, kind):
+    """Each ``update`` of a filter shell launches the kernel once: its
+    graph's warm-up, then once at each replay (``mixture_pdf.launches``),
+    and its ``shell.update`` span carries that launch."""
+    x0, state_pdf, meas = (GaussianSum.create(*a, device=cuda)
+                           for a in rig.bench_rig())
+    f, g = bio.homeostatic_des, bio.static_outputs
+    if kind == "pf":
+        shell = pf.ParticleFilter(f, g, 2**16, x0, state_pdf, meas, seed=4)
+    else:
+        shell = gsf.GaussianSumUnscentedKalmanFilter(
+            f, g, 2**14, x0, state_pdf, meas, seed=4, device=cuda)
+    u = np.array([0.06, 0.2])
+    z = bio.static_outputs(torch.from_numpy(rig.X_SS)).numpy()
+    trace._arm(True)
+    try:
+        for k in range(4):
+            before = mpdf.mixture_pdf.launches
+            shell.update(u, z)
+            torch.cuda.synchronize()
+            assert mpdf.mixture_pdf.launches == before + 1
+        rec = trace.collect(cuda)
+    finally:
+        trace._arm()
+    assert shell.graphs["update"].replays >= 2
+    attrs = [rec.attr[i] for i, k in enumerate(rec.name.tolist())
+             if rec.names[k] == "shell.update"]
+    assert attrs == [(("mixture_pdf", 1),)] * 4
+    assert torch.isfinite(shell.weights).all()

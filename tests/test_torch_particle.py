@@ -9,7 +9,8 @@ Noise and ``r`` are the reference's own, injected through
 
 * predicted particles: bit-equal (the same float32 ops in the same order);
 * weights after ``update`` / ``update_stabilized``: ``rtol=1e-5``
-  (``exp`` and the mixture's einsum round differently);
+  (``exp``, and the reference's einsum against the port's unrolled
+  density, round differently);
 * one step: rows whose ancestor moved with an ``ends`` entry on a cumsum
   tie may differ (at most ``STEP_TIE_ROWS`` of 4096); given the
   reference's ``ends`` the step is bit-equal;

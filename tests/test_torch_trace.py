@@ -131,6 +131,19 @@ def test_shell_and_graphed_spans_on_the_cpu(armed):
     assert not trace._CARDS
 
 
+def test_shell_update_span_carries_the_mixture_launches(armed):
+    """The ``shell.update`` span's attribute is the mixture density's
+    launches in the call: none on the CPU, where the plain version runs
+    (one on the card: ``tests/test_torch_kernels.py``)."""
+    shell = _shell()
+    _step(shell)
+    shell.update(U, Z)
+    rec = trace.collect("cpu")
+    attrs = [rec.attr[i] for i, name in enumerate(_names(rec))
+             if name == "shell.update"]
+    assert attrs == [(("mixture_pdf", 0),)] * 2
+
+
 def test_a_graphed_call_spans_its_capture_and_replays(armed, stand_in):
     g = graphs.Graphed(lambda x: 2 * x + 1, key=lambda: "auto")
     x = torch.arange(4.0)
