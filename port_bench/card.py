@@ -40,8 +40,14 @@ def name_and_limit() -> str:
 
 
 def clocks() -> dict:
-    """The SM clock (MHz) and temperature (C) now."""
-    vals = smi("clocks.sm,temperature.gpu")
-    if len(vals) != 2:
+    """The SM and memory clocks (MHz), temperature (C), power drawn (W)
+    and the active clock-event reasons (a bit mask) now."""
+    names = ("sm_clock_mhz", "mem_clock_mhz", "temperature_c", "power_w")
+    vals = smi("clocks.sm,clocks.mem,temperature.gpu,power.draw")
+    if len(vals) != len(names):
         return {}
-    return {"sm_clock_mhz": vals[0], "temperature_c": vals[1]}
+    out = dict(zip(names, vals))
+    reasons = smi("clocks_throttle_reasons.active")
+    if reasons:
+        out["clock_event_reasons"] = reasons[0]
+    return out

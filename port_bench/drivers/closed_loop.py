@@ -12,13 +12,18 @@ seed to seed; the pool's episodes stall different numbers of times, so
 an episode's device time against its WHILE iterations gives the cost of
 one chunk. The window runs whole cycles of the pool and starts none
 once ``--seconds`` has passed; the seed also picks the episodes the
-reference checks and the reference filter's own stream. After each
-episode its records, its statuses and the WHILE iterations the card
-counted are read. Set-up captures the step's graphs (one a pair of
-event masks) and the QP's by calling the loop's graphed step twice for
-each pair. With ``--trace 1`` one short episode (``trace_end_time``)
-through a second loop of the same rig runs under the profiler after the
-window.
+reference checks and the reference filter's own stream (the filter of
+the configuration's estimator, ``loop_filter`` of
+``estimators/<estimator>.py``). After each episode its records, its
+statuses and the WHILE iterations the card counted are read. Set-up
+captures the step's graphs (one a pair of event masks) and the QP's by
+calling the loop's graphed step twice for each pair. With ``--trace 1``
+one short episode (``trace_end_time``) through a second loop of the same
+rig runs under the profiler after the window. Where the estimator's
+module reads the program's bank (``bank_survivors``), each checked
+episode runs once more after that, through the same graphs from the same
+inputs, its records held bit for bit to the window's, for the bank after
+each control event.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ import time
 
 import numpy as np
 
-from port_bench import tracing, traffic_gen
+from port_bench import manifest, tracing, traffic_gen
 from port_bench.drivers.stream import mixtures
 from port_bench.reference import loop_check, plant
 from port_bench.reference.mpc import ReferenceMPC
@@ -164,6 +169,34 @@ def run(s) -> None:
         s.say("the profiler records no kernel that runs inside a conditional "
               "node's body: busy_s leaves out the QP's WHILE chunks")
 
+    t_check = time.perf_counter()
+    survivors = getattr(manifest.module("estimators", cfg["estimator"]),
+                        "bank_survivors", None)
+
+    def replay(ep):
+        """The episode once more through the same graphs from the same
+        inputs, for what the records leave out: the filter's bank after
+        each control event, read by the estimator's ``bank_survivors``.
+        NaN throughout where the replay's records depart from the
+        window's by a bit."""
+        gen = torch.Generator(device=dev).manual_seed(
+            int(tr["noise_seed"]) + ep["pool_index"])
+        carry, noise = run.start(state0, x0, gen)
+        flags = list(zip(*(m.tolist() for m in masks)))
+        outs, kept = [], []
+        for i, key in enumerate(flags):
+            carry, out = step_g(*carry, noise[i], *key)
+            outs.append(out)
+            if key[1]:
+                kept.append(survivors(carry[0]))
+        same = all(torch.equal(torch.stack(v), w)
+                   for v, w in zip(zip(*outs), ep["rec"]))
+        shares = torch.stack(kept).cpu().numpy()
+        if not same:
+            s.say(f"the replay of pool episode {ep['pool_index']} departs "
+                  f"from the window's records")
+            shares[:] = np.nan
+        return shares
     rng = np.random.default_rng([s.seed, 3])
     picks = rng.choice(len(episodes), size=min(int(tr["check_episodes"]),
                                                len(episodes)), replace=False)
@@ -176,6 +209,13 @@ def run(s) -> None:
                          "status": r.status.cpu().numpy(),
                          "noise": _host(ep["noise"]),
                          "predict": masks[0], "control": masks[1]}))
+        if survivors is not None:
+            kept = recs[-1][1]["survivors"] = replay(ep)
+            low = np.flatnonzero(kept < 0.999)
+            s.say(f"pool episode {ep['pool_index']}: share of the bank kept "
+                  f"by each control event's resample: min "
+                  f"{float(kept.min())!r}, mean {float(kept.mean())!r}; "
+                  f"under 0.999 at {len(low)} events: {low[:12].tolist()}")
     del episodes, run, K, est, state0, step_g
     if s.trace and on_card:
         del run_t, rec_t
@@ -187,16 +227,19 @@ def run(s) -> None:
                                  cfg["plant"]["x_guess"])
     mix = mixtures(cfg)
     dt = float(np.float32(ts[1]))
+    loop_filter = manifest.module("estimators", cfg["estimator"]).loop_filter
     out = {}
     for p, rec in recs:
         got = loop_check.check_episode(
             rec, x_start, mpc_ref, cfg, mix, dt, SOLVED,
             seed=(s.seed * 7919 + p) % 2 ** 63, device=dev,
-            control=s.control)
+            loop_filter=loop_filter, control=s.control)
         s.say(f"episode {p} ({episodes_meta[p]['pool_index']} of the pool): "
               f"estimate gap over the spread by state: "
               f"{got.pop('_estimate_gap_by_state')}")
         for k, v in got.items():
-            out[k] = max(out.get(k, 0), v) if k != "fallback_misses" \
-                else out.get(k, 0) + v
+            out[k] = loop_check.worse(out.get(k, 0), v) \
+                if k != "fallback_misses" else out.get(k, 0) + v
     s.compared = out
+    s.say(f"check: {time.perf_counter() - t_check:.2f} s for {len(recs)} "
+          f"episodes")

@@ -1,6 +1,8 @@
 """The Gaussian-sum UKF (``filters.gs_ukf``) as a configuration builds
-it, what a snapshot of its state holds, and how the reference judges one
-step."""
+it, what a snapshot of its state holds, how the reference judges one
+step, the reference filter that the closed loop's check runs beside the
+program's, and what the check reads of the program's bank in the loop
+(``bank_survivors``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,6 +10,7 @@ import torch
 
 from port_bench.reference import pf as ref_pf
 from port_bench.reference import systematic, ukf
+from port_bench.reference.loop_check import worse
 
 
 def build(cfg: dict, seed: int, device, x_plant):
@@ -71,26 +74,42 @@ def check(snaps: list, mixtures: dict, control: str = "none",
                 u["weights"]
             r_means, r_covs, r_w = r["means"], r["covariances"], r["weights"]
             est_out = s["estimate"]
-        out["noise_moment_gap"] = max(out["noise_moment_gap"],
-                                      ukf.predict_noise_gaps(
+        out["noise_moment_gap"] = worse(out["noise_moment_gap"],
+                                        ukf.predict_noise_gaps(
             b["means"], b["covariances"], m1, c1, s["u"], s["dt"],
             mixtures["state"]))
         sd = p["covariances"].double().diagonal(dim1=1, dim2=2) \
             .clamp_min(0).sqrt() + 1e-30
-        out["mean_gap"] = max(out["mean_gap"],
-                              ukf.relative_gap(m2_out, m2, sd))
-        out["cov_gap"] = max(out["cov_gap"], ukf.relative_gap(
+        out["mean_gap"] = worse(out["mean_gap"],
+                                ukf.relative_gap(m2_out, m2, sd))
+        out["cov_gap"] = worse(out["cov_gap"], ukf.relative_gap(
             c2_out, c2, sd[:, :, None] * sd[:, None, :]))
-        out["weight_gap"] = max(out["weight_gap"],
-                                ref_pf.weight_gap(w2_out, w2))
+        out["weight_gap"] = worse(out["weight_gap"],
+                                  ref_pf.weight_gap(w2_out, w2))
         anc, missing = systematic.ancestors(u["means"], r_means)
         ok = anc >= 0
         same = (r_covs[ok] == u["covariances"][anc[ok]])
         missing += int((~same.reshape(same.shape[0], -1).all(dim=1)).sum())
         out["rows_not_inherited"] += missing
-        out["offspring_gap"] = max(out["offspring_gap"],
-                                   systematic.offspring_gap(w2, anc))
-        out["estimate_gap"] = max(out["estimate_gap"], ref_pf.estimate_gap(
+        out["offspring_gap"] = worse(out["offspring_gap"],
+                                     systematic.offspring_gap(w2, anc))
+        out["estimate_gap"] = worse(out["estimate_gap"], ref_pf.estimate_gap(
             est_out, r_means, r_w,
             within=r_covs.double().diagonal(dim1=1, dim2=2)))
     return out
+
+
+# the float64 reference filter that the closed loop's check runs beside
+# the program's, over the episode's own inputs and measurements
+# (``reference/loop_check.py``)
+loop_filter = ukf.filter_run
+
+
+def bank_survivors(state) -> torch.Tensor:
+    """The share of the bank's Gaussians that are distinct, bit for bit,
+    in the program's state after a control event's resample: the share
+    of the Gaussians before it that the weights kept. A 0-d tensor on
+    the state's device (no read to the host)."""
+    keys = torch.sort(systematic.row_keys(state.means)).values
+    n = keys.shape[0]
+    return (1 + (keys[1:] != keys[:-1]).sum()).double() / n

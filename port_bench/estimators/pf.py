@@ -1,12 +1,14 @@
 """The flat particle filter (``filters.particle.ParticleFilter``) as a
-configuration builds it, what a snapshot of its state holds, and how the
-reference judges one step."""
+configuration builds it, what a snapshot of its state holds, how the
+reference judges one step, and the reference filter that the closed
+loop's check runs beside the program's."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from port_bench.reference import pf as ref_pf
+from port_bench.reference.loop_check import worse
 
 
 def build(cfg: dict, seed: int, device, x_plant):
@@ -71,14 +73,20 @@ def check(snaps: list, mixtures: dict, control: str = "none",
             w2_out = s["resampled"]["weights"]
             est_out = s["estimate"]
         noise.append(x1_out - mean1)
-        out["weight_gap"] = max(out["weight_gap"],
-                                ref_pf.weight_gap(w1_out, w_ref))
+        out["weight_gap"] = worse(out["weight_gap"],
+                                  ref_pf.weight_gap(w1_out, w_ref))
         missing, mismatch = ref_pf.resample_gaps(x1, w_ref, x2_out)
         out["rows_not_inherited"] += missing
-        out["offspring_gap"] = max(out["offspring_gap"], mismatch)
-        out["estimate_gap"] = max(out["estimate_gap"], ref_pf.estimate_gap(
+        out["offspring_gap"] = worse(out["offspring_gap"], mismatch)
+        out["estimate_gap"] = worse(out["estimate_gap"], ref_pf.estimate_gap(
             est_out, x2_out, w2_out))
     if noise:
         out["noise_moment_gap"] = ref_pf.moment_gap(torch.cat(noise),
                                                     mixtures["state"])
     return out
+
+
+# the float64 reference filter that the closed loop's check runs beside
+# the program's, over the episode's own inputs and measurements
+# (``reference/loop_check.py``)
+loop_filter = ref_pf.filter_run

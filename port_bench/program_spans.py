@@ -186,9 +186,46 @@ def _named(rec, lo: int, hi: int, name: str) -> np.ndarray:
     return np.flatnonzero(rec.name[lo:hi] == rec.names.index(name)) + lo
 
 
+# the QP's solve, a graphed call captured into the step's graph: a site
+SOLVE_SITE = "graphed._device_solve"
+
+
 def control_event_device_ms(run):
     """The device time of each control step's graphed step over the
     window's episodes, ms, or None."""
+    got = control_step_spans(run)
+    if got is None:
+        return None
+    rec, dev = got
+    return (rec.dev_end[dev] - rec.dev_start[dev]) * 1e-6
+
+
+def control_event_non_qp_device_ms(run):
+    """``(ms, events)``: the device time of each control step's graphed
+    step over the window's episodes less that of the QP's solve nested
+    in it (the :data:`SOLVE_SITE` span, stamped at each replay), ms, for
+    the events whose solve was stamped, and the number of control events
+    in the window; or None where no solve span was stamped."""
+    got = control_step_spans(run)
+    if got is None or SOLVE_SITE not in got[0].names:
+        return None
+    rec, dev = got
+    kids = np.flatnonzero((rec.dev_name == rec.names.index(SOLVE_SITE))
+                          & np.isin(rec.dev_parent, dev)
+                          & (rec.dev_end >= 0))
+    if not len(kids):
+        return None
+    solve = np.zeros(len(rec.dev_start), dtype=np.int64)
+    np.add.at(solve, rec.dev_parent[kids],
+              rec.dev_end[kids] - rec.dev_start[kids])
+    had = dev[np.isin(dev, rec.dev_parent[kids])]
+    return ((rec.dev_end[had] - rec.dev_start[had] - solve[had]) * 1e-6,
+            len(dev))
+
+
+def control_step_spans(run):
+    """``(recording, spans)``: the device spans of each control step's
+    graphed step over the window's episodes, or None."""
     w = window(run)
     if w is None:
         return None
@@ -204,7 +241,7 @@ def control_event_device_ms(run):
     dev = dev[dev >= 0]
     if not len(dev):
         return None
-    return (rec.dev_end[dev] - rec.dev_start[dev]) * 1e-6
+    return rec, dev
 
 
 def while_gaps_ms(run):

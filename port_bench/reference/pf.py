@@ -118,6 +118,16 @@ def resample_gaps(x_before, w_ref, x_after):
     return missing, systematic.offspring_gap(w_ref, anc)
 
 
+def systematic_indices(wn: torch.Tensor, generator) -> torch.Tensor:
+    """The rows systematic resampling of the normalized float64 weights
+    ``wn`` copies, at a uniform ``r`` drawn from ``generator``."""
+    n = wn.shape[0]
+    cs = torch.cumsum(wn, 0)
+    r = torch.rand((), dtype=F64, generator=generator, device=wn.device)
+    pos = (torch.arange(n, dtype=F64, device=wn.device) + r) / n
+    return torch.searchsorted(cs / cs[-1], pos).clamp_max(n - 1)
+
+
 def filter_run(x0_mix, state_mix, meas_mix, n, us, zs, dt, generator,
                device, predict, control, reduced: bool = False):
     """A float64 particle filter of ``n`` particles over the inputs
@@ -145,9 +155,6 @@ def filter_run(x0_mix, state_mix, meas_mix, n, us, zs, dt, generator,
         ests.append(mean)
         sds.append((wn @ (x - mean).pow(2)).sqrt())
         if control[t]:
-            cs = torch.cumsum(wn, 0)
-            r = torch.rand((), dtype=F64, generator=generator, device=device)
-            pos = (torch.arange(n, dtype=F64, device=device) + r) / n
-            x = x[torch.searchsorted(cs / cs[-1], pos).clamp_max(n - 1)]
+            x = x[systematic_indices(wn, generator)]
             w = torch.full((n,), 1.0 / n, dtype=F64, device=device)
     return rnd(torch.stack(ests)), torch.stack(sds)

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -119,3 +120,59 @@ def test_step_tail_from_stage_times():
     run = _run(stage_ms={"predict": [1.0] * 100, "update": [2.0] * 100,
                          "resample": [0.5] * 99 + [10.5]})
     assert reader("filter_step_ms_p99")(run) == pytest.approx(3.6, abs=0.01)
+
+
+def _loop_recording(solve_site=True):
+    """A closed-loop recording of one episode, shaped as the program
+    records it: ``loop.start``, then ``loop.steps`` with a control step
+    and a predict-only step, each a ``graphed.step`` on the card; the
+    control step's graph holds the QP's solve, a site stamped inside it.
+    Times in ns."""
+    from gpu_se_tpu_torch import trace
+
+    names = ["loop.start", "loop.steps", "loop.step", "graphed.step",
+             "graphed._device_solve"]
+
+    def i64(values):
+        return np.asarray(values, dtype=np.int64)
+    # host spans: start, steps, step (control), graphed, step, graphed
+    dev = [(0, -1, 0, 0, 10), (3, -1, 1, 100, 400), (5, -1, 1, 500, 600)]
+    dev_name = [0, 3, 3]
+    if solve_site:
+        # the solve inside the control step's graph: 200 of its 300 ns
+        dev.insert(2, (-1, 1, 1, 150, 350))
+        dev_name.insert(2, 4)
+    return trace.Recording(
+        names=names, name=np.asarray([0, 1, 2, 3, 2, 3], dtype=np.int32),
+        attr=[None, None, (True, True), None, (True, False), None],
+        parent=i64([-1, -1, 1, 2, 1, 4]), call=i64([0, 1, 1, 1, 1, 1]),
+        start=i64([0, 50, 90, 95, 480, 490]),
+        end=i64([20, 700, 450, 440, 650, 640]),
+        mark=np.full((6, 2), -1, dtype=np.int64), dropped_spans=0,
+        dev_name=np.asarray(dev_name, dtype=np.int32),
+        dev_host=i64([d[0] for d in dev]),
+        dev_parent=i64([d[1] for d in dev]),
+        dev_call=i64([d[2] for d in dev]),
+        dev_start=i64([d[3] for d in dev]), dev_end=i64([d[4] for d in dev]),
+        while_time=i64([]), while_span=i64([]), if_time=i64([]),
+        if_span=i64([]), stamps=2 * len(dev), clock_error_ns=(0, 0))
+
+
+@pytest.mark.parametrize("solve_site", [True, False])
+def test_control_event_time_outside_the_solve(solve_site, monkeypatch):
+    from port_bench import program_spans
+
+    rec = _loop_recording(solve_site)
+    monkeypatch.setattr(program_spans, "_collect", lambda device: rec)
+    said = []
+    run = SimpleNamespace(device=torch.device("cuda", 0), attempted=2,
+                          traffic={"kind": "closed_loop"},
+                          episodes=[{"events": 1}], say=said.append)
+    # the control step only: 300 ns on the card, 200 of them the solve's
+    assert reader("control_event_device_ms_p95")(run) == pytest.approx(3e-4)
+    got = reader("control_event_non_qp_device_ms")(run)
+    if not solve_site:
+        assert got is None
+        return
+    assert got == pytest.approx(1e-4)
+    assert any("over 1 of 1 events" in line for line in said)

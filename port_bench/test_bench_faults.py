@@ -15,19 +15,26 @@ CASES = [
     ("pf_2p20_stream", "unchanged", "noise_moment_gap"),
     ("gsukf_2p18_stream", "unchanged", "noise_moment_gap"),
     ("pf_2p20_loop", "unchanged", "estimate_rms_gap"),
+    ("gsukf_2p18_loop", "unchanged", "estimate_rms_gap"),
     # half of the batch left out of the update
     ("pf_2p20_stream", "half_batch", "weight_gap"),
     ("gsukf_2p18_stream", "half_batch", "weight_gap"),
     ("pf_2p20_loop", "half_batch", "estimate_rms_gap"),
+    # (the GSUKF's local updates carry the estimate whatever the
+    # weights: the weights show in the share of the bank each resample
+    # keeps)
+    ("gsukf_2p18_loop", "half_batch", "survivor_share_gap"),
     # an answer altered where it is produced
     ("pf_2p20_stream", "altered", "rows_not_inherited"),
     ("gsukf_2p18_stream", "altered", "rows_not_inherited"),
     ("pf_2p20_loop", "altered", "control_gap"),
+    ("gsukf_2p18_loop", "altered", "control_gap"),
     # the control: the reference in the program's place, in TF32 and
     # bfloat16
     ("pf_2p20_stream", "reduced", "weight_gap"),
     ("gsukf_2p18_stream", "reduced", "mean_gap"),
     ("pf_2p20_loop", "reduced", "plant_gap"),
+    ("gsukf_2p18_loop", "reduced", "plant_gap"),
 ]
 
 
