@@ -80,8 +80,10 @@ def predict_from_noise(particles: torch.Tensor, u, dt, f: Callable,
 
 def predict(state: PFState, u, dt, f: Callable,
             state_pdf: GaussianSum) -> PFState:
-    """Move every particle by the model and a draw of ``state_pdf``."""
-    noise = state_pdf.draw(state.generator, (state.n_particles,))
+    """Move every particle by the model and a draw of ``state_pdf`` (the
+    draw a ``predict.draw`` span of the recorder)."""
+    with trace.site_span("predict.draw", state.particles.device):
+        noise = state_pdf.draw(state.generator, (state.n_particles,))
     return dataclasses.replace(
         state, particles=predict_from_noise(state.particles, u, dt, f, noise))
 

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import torch
 
+from gpu_se_tpu_torch import trace
 from gpu_se_tpu_torch.ops import _build
 from gpu_se_tpu_torch.ops.resample_coarse import (
     ends_from_weights,
@@ -207,9 +208,14 @@ def systematic_resample_tiled(particles: torch.Tensor, weights: torch.Tensor,
     """Systematic resample of ``particles (n, nx)`` by ``weights (n,)``
     and the uniform ``r``; returns ``(resampled (n, nx) float32,
     ancestors (n,) int32)``. Any ``n >= 1`` and any ``nx`` (the
-    reference's entry takes ``nx <= 5``)."""
-    ends = ends_from_weights(weights, r)
-    out, anc = resample_core(particles.to(torch.float32).T.contiguous(), ends)
+    reference's entry takes ``nx <= 5``). The ``ends`` and the gather
+    are the recorder's spans ``resample.ends`` and ``resample.gather``."""
+    dev = particles.device
+    with trace.site_span("resample.ends", dev):
+        ends = ends_from_weights(weights, r)
+    with trace.site_span("resample.gather", dev):
+        out, anc = resample_core(particles.to(torch.float32).T.contiguous(),
+                                 ends)
     return out.T, anc
 
 

@@ -24,9 +24,15 @@ before the first mark and its hand-out after the second; a child
 :data:`DEVICE_CAPACITY` records on the card through an atomic cursor. A
 stamp's tag is its kind (:data:`BEGIN`, :data:`END`) and the host span it
 belongs to, for a stamp launched eagerly; a stamp captured into a caller's
-graph (a graphed call inside a capture runs inline) carries its site, a
-name registered once (:data:`SITE`), and runs at each of the caller's
-replays, nested inside the caller's eager stamps. The conditional nodes'
+graph (a graphed call inside a capture runs inline, or a
+:class:`site_span` inside a stage) carries its site, a name registered
+once (:data:`SITE`), and runs at each of the caller's replays, nested
+inside the caller's eager stamps. The site spans inside the stages:
+``predict.draw`` (a particle filter's state noise, ``filters/particle``),
+``resample.ends`` and ``resample.gather`` (the resample's integer
+``ends``, and its ``compact`` + ``expand`` with the copies around them,
+``ops/resample_pallas4``); called eagerly they are host and device spans
+of the same names. The conditional nodes'
 set kernel (``ops/graph_cond``) stamps each WHILE iteration
 (:data:`WHILE`) and each taken nested IF node (:data:`IF`: the QP's
 refactorization) of a graph captured while the recorder was armed. A card's
@@ -73,11 +79,12 @@ SWITCH = "GST_TRACE"
 # calls, their graphed calls and the point estimate), so at ~360 steps/s
 # the ring fills in ~200 s, and holds 30 s at 1000 steps/s twice over
 HOST_CAPACITY = 1 << 19
-# records of 16 bytes: 8 MiB a card. A stream step stamps 8 times (its
-# three graphed calls and the point estimate), so this holds 30 s at
-# 1000 steps/s twice over, and ~7 cycles of the loop's pool (~12 stamps
+# records of 16 bytes: 16 MiB a card. A flat filter's stream step stamps
+# 14 times (its three graphed calls, the point estimate and the three
+# site spans inside the predict and the resample), so this holds 30 s at
+# 1000 steps/s twice over, and ~8 cycles of the loop's pool (~18 stamps
 # a control event with its WHILE iterations)
-DEVICE_CAPACITY = 1 << 19
+DEVICE_CAPACITY = 1 << 20
 BEGIN, END, WHILE, IF = 0, 1, 2, 3     # a tag's low two bits
 SITE = 1 << 62                         # a stamp captured into a graph
 _ID = (1 << 60) - 1
@@ -253,6 +260,36 @@ class span:
     def __exit__(self, *exc) -> None:
         stamp(self.i, self.device, END)
         end(self.i)
+
+
+class site_span:
+    """``with site_span(name, device):`` a device span around the work the
+    block enqueues on ``device``, nested in its caller's. Inside a capture
+    the block's two stamps of the site ``name`` go into the graph, so the
+    span runs at each replay, inside the replayed call's device span;
+    outside one the block is a :class:`span` (a host span, and on a card
+    eager stamps). Nothing is stamped when the recorder is off, so the
+    graphs captured then hold no stamp."""
+
+    __slots__ = ("name", "device", "inner")
+
+    def __init__(self, name: str, device):
+        self.name, self.device = name, torch.device(device)
+
+    def __enter__(self) -> None:
+        if self.device.type == "cuda" and \
+                torch.cuda.is_current_stream_capturing():
+            self.inner = None
+            stamp_site(site(self.name), self.device, BEGIN)
+        else:
+            self.inner = span(self.name, self.device)
+            self.inner.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        if self.inner is None:
+            stamp_site(site(self.name), self.device, END)
+        else:
+            self.inner.__exit__(*exc)
 
 
 def _index(device) -> int:
